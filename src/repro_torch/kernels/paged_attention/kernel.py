@@ -1,0 +1,65 @@
+"""Binding of the paged decode attention CUDA kernel
+(``csrc/paged_attention.cu``, the Hopper counterpart of
+``repro.kernels.paged_attention.kernel.paged_attention_pallas``).
+
+Takes the layouts the JAX kernel takes after its wrapper's reshapes, checks
+device, dtype, shape and contiguity, allocates the output with
+``torch.empty`` and launches on the current stream. The kernel itself
+allocates nothing and does not synchronise."""
+
+from __future__ import annotations
+
+import torch
+
+from ..build import DTYPE_CODES, check, load_library, require, stream_ptr
+
+WHERE = "paged_attention_cuda"
+
+
+def paged_attention_cuda(
+    q: torch.Tensor,           # (B, KV, G, Dh) — reshaped + rope'd by ops.py
+    pool_k: torch.Tensor,      # (P, page_size, KV, Dh) — shared pool, one layer
+    pool_v: torch.Tensor,
+    page_table: torch.Tensor,  # (B, MP) int32 physical page ids per lane
+    page_bound: torch.Tensor,  # (B,) int32 — ceil((q_pos+1)/ps), in [1, MP]
+    q_pos: torch.Tensor,       # (B,) int32 absolute position of the query
+    kv_pos: torch.Tensor,      # (B, MP*page_size) int32, -1 = empty slot
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    b, kvh, g, dh = q.shape
+    p, ps = pool_k.shape[0], pool_k.shape[1]
+    mp = page_table.shape[1]
+    require(WHERE, q.is_cuda, "q must be a CUDA tensor")
+    require(WHERE, q.dtype in DTYPE_CODES, f"unsupported dtype {q.dtype}")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        require(WHERE, t.device == q.device and t.dtype == q.dtype,
+                 f"{name} must match q's device and dtype")
+        require(WHERE, tuple(t.shape) == (p, ps, kvh, dh), f"{name} shape {tuple(t.shape)}")
+    for name, t, shape in (
+        ("page_table", page_table, (b, mp)),
+        ("page_bound", page_bound, (b,)),
+        ("q_pos", q_pos, (b,)),
+        ("kv_pos", kv_pos, (b, mp * ps)),
+    ):
+        require(WHERE, t.device == q.device and t.dtype == torch.int32,
+                 f"{name} must be int32 on q's device")
+        require(WHERE, tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                    ("page_table", page_table), ("page_bound", page_bound),
+                    ("q_pos", q_pos), ("kv_pos", kv_pos)):
+        require(WHERE, t.is_contiguous(), f"{name} must be contiguous")
+    require(WHERE, dh in (16, 32, 64, 128), f"head dim {dh} not in (16, 32, 64, 128)")
+    require(WHERE, g * dh <= 1024, f"G * Dh = {g * dh} exceeds 1024")
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
+        require(WHERE, t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    err = load_library().repro_paged_attention(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
+        page_bound.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+        b, kvh, g, dh, p, ps, mp, int(window), float(softcap), 1.0 / (dh ** 0.5),
+        DTYPE_CODES[q.dtype], stream_ptr(q),
+    )
+    check(err, "repro_paged_attention")
+    return out

@@ -28,7 +28,27 @@ non-zero):
 6. profile  — host-clock and torch.profiler times of 8 decode steps and
                one 256-token prefill chunk (device busy and idle share,
                top kernels); diagnostic, after the counted run;
-7. result   — a JSON line with every kernel's numbers, the card's name and
+7. K2       — the shared-prefix kernel vs its plain version on (acc, m, l)
+               at the batched server's shapes (B = 8 lanes, 64-page run,
+               queries inside and past the run) and a GQA shape with
+               window x softcap; the cascade (K2, then K1 in continuation
+               mode) vs the plain single pass; then K2, K1's continuation
+               and the single-pass K1 timed at the batched shape;
+8. batched  — BatchedLLMService at full paper width, 8 slots: 16 tenants
+               sharing a 1024-token system prompt arrive as one wave, then
+               8 of them take a second turn; K1, K2 and K3 must all launch,
+               the prompt must be shared (>= 15 shared hits, fewer physical
+               pages than without sharing) and every second turn must be a
+               suffix-only session hit; prints tokens/s, ms per B = 8
+               decode step, ttft and pages, and profiles 4 decode steps;
+9. batched_equivalence — one cascade decode step on clones of the server's
+               pools and kv_pos: logits with the cascade vs the single-pass
+               kernels vs the plain path;
+10. migration — export a session's pages from one TorchLLMService,
+               install them into a second (bit-exact round trip, next turn
+               a "pages" warm start prefilling only its suffix), and prime
+               a third from token ids (a "tokens" warm start);
+11. result  — a JSON line with every kernel's numbers, the card's name and
                power limit, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the ``repro`` package.
@@ -52,6 +72,17 @@ K1_TOL = 2e-2   # bf16 output: f32 sums taken in another order, then rounded
                 # to bf16 (one bf16 ulp is 7.8e-3 on [1, 2), 1.6e-2 on [2, 4))
 K3_TOL = 2e-2
 LOGIT_TOL = 0.15  # per-step logits, kernel vs plain path, 24 bf16 layers
+K2_STATS_TOL = 1e-3  # K2's f32 stats vs the plain f32 version of the same
+                     # bf16 inputs: m (a logit) and acc / l (an attention
+                     # output) in absolute terms, l relative; only the
+                     # order of f32 sums differs
+# batched_equivalence bounds on one decode step's logits (24 bf16 layers):
+CASCADE_TOL = 0.15   # cascade vs single pass: the same kernels, but the f32
+                     # softmax over the run is summed as two merged partial
+                     # states; a bf16 rounding flip at one layer's output
+                     # then propagates through the rest, as kernel vs plain
+PLAIN_TOL = 0.15     # cascade vs the plain path: LOGIT_TOL, the bound for
+                     # kernel vs plain logits over 24 layers
 
 
 def log(msg: str) -> None:
@@ -258,6 +289,427 @@ def phase_k3(dev, n_layers: int) -> dict:
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+# ---------------------------------------------------------------------------
+# K2: shared-prefix cascade pass (and K1's continuation)
+# ---------------------------------------------------------------------------
+
+def _shared_case(gen, n_shared, suffixes, H, KV, Dh, dtype, dev):
+    """Lanes whose tables all start with the same ``n_shared`` pages; lane
+    b holds ``n_shared * PS + suffixes[b]`` tokens (a negative suffix puts
+    its query inside the run) and owns pages for its positive suffix.
+    Returns (q, pool_k, pool_v, table, q_pos, kv_pos), shared pages."""
+    import torch
+
+    B = len(suffixes)
+    pages_of = lambda n: -(-max(n, 0) // PS)
+    mp = n_shared + max(1, max(pages_of(n) for n in suffixes))
+    n_pages = 1 + n_shared + sum(pages_of(n) for n in suffixes)
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
+    table = torch.zeros(B, mp, dtype=torch.int32)
+    table[:, :n_shared] = torch.arange(1, 1 + n_shared, dtype=torch.int32)
+    kv_pos = torch.full((B, mp * PS), -1, dtype=torch.int32)
+    used = 1 + n_shared
+    for bi, sfx in enumerate(suffixes):
+        for pj in range(pages_of(sfx)):
+            table[bi, n_shared + pj] = used
+            used += 1
+        n = n_shared * PS + sfx
+        kv_pos[bi, :n] = torch.arange(n, dtype=torch.int32)
+    q_pos = torch.tensor([[n_shared * PS + s - 1] for s in suffixes], dtype=torch.int32)
+    shared = torch.arange(1, 1 + n_shared, dtype=torch.int32, device=dev)
+    return (q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)), shared
+
+
+def _stats_err(got, want) -> dict:
+    """K2's (acc, m, l) against the plain version's: m and acc / l (the
+    normalised output) absolute, l relative."""
+    import torch
+
+    (acc, m, l), (acc_r, m_r, l_r) = got, want
+    norm = lambda a, ll: a / torch.where(ll == 0, torch.ones_like(ll), ll)
+    return {
+        "m": (m - m_r).abs().max().item(),
+        "l_rel": ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item(),
+        "acc_over_l": (norm(acc, l) - norm(acc_r, l_r)).abs().max().item(),
+    }
+
+
+def phase_k2(dev, n_layers: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda,
+        shared_prefix_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_run = 64
+    cases = [
+        # queries at 499 and 1022 lie inside the 1024-token run, 1023 at its
+        # end, the rest past it (the server's lanes)
+        ("server B=8 mha", (-524, -1, 0, 1, 15, 16, 35, 72), 16, 16, 64, 0, 0.0),
+        # window 100: most of the run masked, the last lane's run entirely
+        ("gqa G=4 window x softcap", (-3, 0, 40, 200), 16, 4, 64, 100, 30.0),
+    ]
+    err = 0.0
+    for name, sfx, H, KV, Dh, window, cap in cases:
+        args, sp = _shared_case(gen, n_run, sfx, H, KV, Dh, torch.bfloat16, dev)
+        q, pk, pv, table, q_pos, kv_pos = args
+        qr = q.reshape(len(sfx), KV, H // KV, Dh)
+        got = ops.shared_prefix(qr, pk, pv, sp, q_pos.reshape(-1), window=window, softcap=cap)
+        want = ref.shared_prefix_ref(qr, pk, pv, sp, q_pos.reshape(-1), window=window,
+                                     softcap=cap)
+        fused = ops.paged_attention(*args, sp, window=window, softcap=cap)
+        single = ref.paged_attention_ref(*args, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        e = _stats_err(got, want)
+        e_out = (fused.float() - single.float()).abs().max().item()
+        assert all(torch.isfinite(t).all() for t in got), name
+        log(f"K2 {name}: stats err {json.dumps(e)} (bound {K2_STATS_TOL}); cascade "
+            f"(K2 + K1 continuation) vs plain single pass: max_abs_err {e_out:.3e} "
+            f"(bound {K1_TOL})")
+        assert max(e.values()) <= K2_STATS_TOL, f"K2 {name}: {e}"
+        assert e_out <= K1_TOL, f"cascade {name}: {e_out} > {K1_TOL}"
+        if window:
+            assert (got[1][-1] == -1e30).all() and (got[2][-1] == 0).all(), \
+                "K2: a fully masked run must leave m = -1e30, l = 0"
+        err = max(err, e["m"], e["acc_over_l"])
+
+    # the batched server's shape: B = 8 lanes past a 64-page run, MHA
+    # 16 x 64, one input set per layer
+    sfx = (24, 31, 38, 45, 52, 59, 66, 72)
+    B, H, KV, Dh, T = len(sfx), 16, 16, 64, n_run * PS
+    sets = [_shared_case(gen, n_run, sfx, H, KV, Dh, torch.bfloat16, dev)
+            for _ in range(n_layers)]
+    prepared = []
+    for (q, pk, pv, table, q_pos, kv_pos), sp in sets:
+        qp = q_pos.reshape(B).contiguous()
+        bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
+        qr = q.reshape(B, KV, H // KV, Dh).contiguous()
+        prepared.append((qr, pk, pv, sp, qp, table, bound, kv_pos))
+    k2_ms = device_time_ms([lambda a=a: shared_prefix_cuda(*a[:5]) for a in prepared])
+    plain_ms = device_time_ms([lambda a=a: ref.shared_prefix_ref(*a[:5]) for a in prepared])
+    inits = [shared_prefix_cuda(*a[:5]) for a in prepared]
+    cont_ms = device_time_ms(
+        [lambda a=a, i=i: paged_attention_cuda(a[0], a[1], a[2], a[5], a[6], a[4], a[7],
+                                               start=n_run, init=i)
+         for a, i in zip(prepared, inits)])
+    single_ms = device_time_ms(
+        [lambda a=a: paged_attention_cuda(a[0], a[1], a[2], a[5], a[6], a[4], a[7])
+         for a in prepared])
+    lib_args = []
+    kp = torch.arange(T, device=dev)[None, :]
+    for qr, pk, pv, sp, qp, *_ in prepared:
+        k = pk[sp.long()].reshape(T, KV, Dh).transpose(0, 1)[None].contiguous()
+        v = pv[sp.long()].reshape(T, KV, Dh).transpose(0, 1)[None].contiguous()
+        rows = qr.permute(1, 0, 2, 3).reshape(1, KV, B * (H // KV), Dh).contiguous()
+        mask = kp <= qp.repeat_interleave(H // KV)[:, None]     # (B*G, T) causal
+        lib_args.append((rows, k, v, mask))
+    library_ms = device_time_ms(
+        [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
+         for a in lib_args])
+    visible = sum(min(n_run * PS + s, T) for s in sfx)
+    run_bytes = 2 * T * KV * Dh * 2
+    nbytes = run_bytes + B * H * Dh * 2 + B * H * (Dh + 2) * 4 + 4 * (n_run + B)
+    flops = 4 * H * Dh * visible
+    bound_ms, bound_by = _bound(nbytes, flops)
+    lane_tokens = [n_run * PS + s + 1 for s in sfx]          # visited by the single pass
+    single_bytes = sum(2 * t * KV * Dh * 2 for t in lane_tokens)
+    suffix_bytes = sum(2 * (t - T) * KV * Dh * 2 for t in lane_tokens)
+    log(f"K2 server shape (B={B}, run {n_run} pages = {T} tokens, MHA {H} x {Dh}): "
+        f"kernel_ms {k2_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} "
+        f"bound_ms {bound_ms:.6f} ({bound_by}, {nbytes} B)")
+    log(f"K1 at the same lanes: continuation over the suffixes (start {n_run}) "
+        f"{cont_ms:.5f} ms ({suffix_bytes} B of K/V); single pass over whole tables "
+        f"{single_ms:.5f} ms ({single_bytes} B of K/V); cascade K2 + K1 "
+        f"{k2_ms + cont_ms:.5f} ms ({run_bytes + suffix_bytes} B of K/V)")
+    return {
+        "name": "shared_prefix", "route": "cuda",
+        "source": "src/repro_torch/csrc/shared_prefix.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:228",
+        "max_abs_err": err, "ms": k2_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "k1_continuation_ms": cont_ms, "k1_single_pass_ms": single_ms,
+        "k1_single_pass_kv_bytes": single_bytes,
+        "cascade_kv_bytes": run_bytes + suffix_bytes,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Batched path: many tenants sharing a system prompt
+# ---------------------------------------------------------------------------
+
+N_SLOTS, N_TENANTS, SYSTEM_TOKENS, MAX_NEW_BATCHED = 8, 16, 1024, 16
+
+
+def _counters():
+    from repro_torch.kernels.chunked_prefill import ops as chunk_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    return {
+        "paged_attention": paged_ops.paged_attention,
+        "shared_prefix": paged_ops.shared_prefix,
+        "chunked_prefill": chunk_ops.chunked_prefill_attention,
+    }
+
+
+def _drive(server, on_pure_step=None):
+    """``run_to_completion`` with each step timed: returns [(ready lanes,
+    step ms, pure)] where a pure step ran no admission and no prefill chunk
+    (only the batched decode). ``on_pure_step(server, k)`` may take over a
+    pure step (e.g. to profile it) and returns True when it stepped."""
+    import torch
+
+    steps, k = [], 0
+    while server.busy:
+        free = sum(s is None for s in server.slots)
+        pure = not server._prefill_fifo and not (server.queue and free)
+        ready = sum(1 for s in server.slots if s is not None and s.prefilled)
+        if pure and on_pure_step is not None and on_pure_step(server, k):
+            k += 1
+            continue
+        t0 = time.perf_counter()
+        server.step()       # ends in the step's host sync of the sampled tokens
+        steps.append((ready, (time.perf_counter() - t0) * 1e3, pure))
+        k += pure
+    torch.cuda.synchronize()
+    return steps
+
+
+def phase_batched(dev):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.serving import BatchedLLMService
+
+    cfg = PAPER_QWEN15_0_5B.replace(attn_impl="cuda")
+    t0 = time.perf_counter()
+    svc = BatchedLLMService.create(
+        "paper-qwen1.5-0.5b", cfg, seed=0, n_slots=N_SLOTS, max_len=2048, paged=True,
+        page_size=PS, kv_pages=1024, share_prefixes=True, prefill_chunk_tokens=256,
+        device=dev,
+    )
+    server = svc.server
+    torch.cuda.synchronize()
+    log(f"batched: service built in {time.perf_counter() - t0:.2f} s ({N_SLOTS} slots, "
+        f"{server.allocator.n_pages - 1} pages of {PS} tokens, "
+        f"{server.allocator.page_bytes} B per page)")
+    rng = np.random.default_rng(12)
+    system = rng.integers(300, cfg.vocab_size, size=SYSTEM_TOKENS).tolist()
+    questions = [rng.integers(300, cfg.vocab_size, size=int(rng.integers(24, 73))).tolist()
+                 for _ in range(N_TENANTS)]
+    # warm-up (cuBLAS handles at the batched shapes), not part of the counted run
+    server.submit(rng.integers(300, 5000, size=40).tolist(), max_new=4)
+    server.submit(rng.integers(300, 5000, size=40).tolist(), max_new=4)
+    server.run_to_completion()
+    server.finished.clear()
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pool = server.session_pool
+    hits0, toks0 = pool.shared_hits, pool.shared_tokens
+
+    # wave 1: 16 tenants at once
+    rids = [server.submit(system + qs, max_new=MAX_NEW_BATCHED, cache_key=f"tenant{i}")
+            for i, qs in enumerate(questions)]
+    t_wave = time.perf_counter()
+    steps1 = _drive(server)
+    wave_s = time.perf_counter() - t_wave
+    fin = {f.request_id: f for f in server.finished}
+    server.finished.clear()
+    first = [fin[r] for r in rids]
+    gen_tokens = sum(len(f.token_ids) for f in first)
+    shared_hits = pool.shared_hits - hits0
+    used = server.allocator.used_pages
+    st = pool.stats()
+    log(f"batched: wave of {N_TENANTS} tenants ({SYSTEM_TOKENS}-token shared prompt + "
+        f"24-72 private tokens, max_new {MAX_NEW_BATCHED}): {gen_tokens} tokens in "
+        f"{wave_s:.3f} s = {gen_tokens / wave_s:.2f} tokens/s over {len(steps1)} steps; "
+        f"shared hits {shared_hits}, shared tokens {pool.shared_tokens - toks0}")
+    log(f"batched: pages in use {used} physical vs {st['pages_in_use']} without sharing "
+        f"(the entries' own page counts)")
+    assert all(len(f.token_ids) == MAX_NEW_BATCHED or f.token_ids[-1] in server.stop_tokens
+               for f in first)
+    assert shared_hits >= N_TENANTS - 1, shared_hits
+    assert used < st["pages_in_use"], (used, st)
+
+    # wave 2: 8 sessions take a second turn; after 4 timed pure decode
+    # steps, 4 are profiled, and the next one is also run on clones for
+    # the batched_equivalence phase
+    profiled, equivalence = {}, {}
+
+    def hook(srv, k):
+        if k == 4:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    srv.step()
+                torch.cuda.synchronize()
+                profiled["traced_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+            profiled["prof"] = prof
+            return True
+        if k == 5:
+            # its launches compare the kernels with each other and with the
+            # plain path: they are not the served run's, so they do not count
+            before = {name: fn.launches for name, fn in counters.items()}
+            equivalence.update(phase_batched_equivalence(srv))
+            for name, fn in counters.items():
+                fn.launches = before[name]
+        return False
+
+    keys = list(range(0, N_TENANTS, 2))
+    hist = {i: system + questions[i] + first[i].token_ids for i in keys}
+    follow = {i: rng.integers(300, cfg.vocab_size, size=int(rng.integers(16, 41))).tolist()
+              for i in keys}
+    rids2 = {i: server.submit(hist[i] + follow[i], max_new=MAX_NEW_BATCHED,
+                              cache_key=f"tenant{i}") for i in keys}
+    steps2 = _drive(server, hook)
+    fin = {f.request_id: f for f in server.finished}
+    server.finished.clear()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"batched: kernel launches {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+    for i in keys:
+        f = fin[rids2[i]]
+        assert f.cache_hit and f.reused_tokens == len(hist[i]), (i, f.reused_tokens, len(hist[i]))
+        assert len(hist[i] + follow[i]) - f.reused_tokens == len(follow[i])
+    log(f"batched: second turns of {len(keys)} sessions: all session hits prefilling only "
+        f"their {min(map(len, follow.values()))}-{max(map(len, follow.values()))}-token suffix")
+
+    pure8 = [ms for ready, ms, pure in steps1 + steps2 if pure and ready == N_SLOTS]
+    ttfts = [f.ttft_ms for f in first]
+    summary = {
+        "wave_tokens_per_s": gen_tokens / wave_s,
+        "decode_ms_per_step_b8_p50": float(np.percentile(pure8, 50)),
+        "decode_steps_b8": len(pure8),
+        "decode_tokens_per_s_b8": N_SLOTS * 1e3 / float(np.percentile(pure8, 50)),
+        "ttft_ms_p50": float(np.percentile(ttfts, 50)),
+        "ttft_ms_p90": float(np.percentile(ttfts, 90)),
+        "pages_in_use": used, "pages_without_sharing": st["pages_in_use"],
+        "shared_hits": shared_hits,
+    }
+    log(f"batched: summary {json.dumps(summary)}")
+    assert equivalence, "no cascade step was left to compare"
+    if profiled:
+        busy, rows = _device_ms(profiled["prof"])
+        busy /= 4
+        wall = float(np.percentile(pure8, 50))
+        entry = {"wall_ms": wall, "traced_wall_ms": profiled["traced_wall_ms"],
+                 "device_busy_ms": busy if busy > 0 else "not measured",
+                 "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
+                 "top_kernels_ms": [(k[:70], t / 4, c // 4) for k, t, c in rows[:8]]}
+        log(f"profile decode_step_b8: {json.dumps(entry)}")
+    return svc, launches, summary, equivalence
+
+
+def phase_batched_equivalence(server) -> dict:
+    """One decode step of the server as it stands (all lanes decoding, the
+    cascade active), run three times on clones of its pools and kv_pos —
+    (a) the kernels with the shared run, (b) the kernels without it,
+    (c) the plain path — and the ready lanes' logits compared. The server
+    itself is untouched."""
+    import torch
+    from repro_torch.models import decode_step_paged
+
+    plan = server._grow_and_plan()
+    assert plan is not None and plan.shared_run, "the cascade is not active at this step"
+    table, tokens, pos, shared = server.decode_inputs(plan)
+    wp = plan.w * server.allocator.page_size
+    cfg = server.cfg
+    logits = {}
+    for name, c, sp in (("cascade", cfg, shared), ("single", cfg, None),
+                        ("plain", cfg.replace(attn_impl="reference"), None)):
+        pools = [{k: t.clone() for k, t in p.items()} for p in server.allocator.pools]
+        kv = server._kv_pos[:, :wp].clone()
+        logits[name] = decode_step_paged(server.params, c, pools, table, kv, tokens, pos,
+                                         sp)[plan.ready, 0].float()
+        del pools
+    torch.cuda.synchronize()
+    ready = len(plan.ready)
+    assert all(torch.isfinite(v).all() for v in logits.values())
+    assert logits["cascade"].shape == (ready, cfg.vocab_size)
+    d_single = (logits["cascade"] - logits["single"]).abs().max().item()
+    d_plain = (logits["cascade"] - logits["plain"]).abs().max().item()
+    agree = (logits["cascade"].argmax(-1) == logits["plain"].argmax(-1)).float().mean().item()
+    log(f"batched_equivalence: one decode step, {ready} lanes, table width {plan.w} pages, "
+        f"shared run {len(plan.shared_run)} pages: max |logit diff| cascade vs single pass "
+        f"{d_single:.4e} (bound {CASCADE_TOL}), cascade vs plain {d_plain:.4e} (bound "
+        f"{PLAIN_TOL}); argmax agreement with plain {agree:.3f}")
+    assert d_single <= CASCADE_TOL, f"cascade vs single pass: {d_single} > {CASCADE_TOL}"
+    assert d_plain <= PLAIN_TOL, f"cascade vs plain: {d_plain} > {PLAIN_TOL}"
+    return {"cascade_vs_single": d_single, "cascade_vs_plain": d_plain,
+            "shared_run_pages": len(plan.shared_run), "lanes": ready}
+
+
+def phase_migration(params, dev) -> dict:
+    """KV-page migration between three TorchLLMServices with the same
+    weights: a serves a session and exports its pages; b installs them
+    (bit-exact, next turn a "pages" warm start); c primes from token ids
+    (next turn a "tokens" warm start). Both warm turns prefill only the
+    new prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.serving import TorchLLMService
+
+    cfg = PAPER_QWEN15_0_5B.replace(attn_impl="cuda")
+    mk = lambda: TorchLLMService.create("paper-qwen1.5-0.5b", cfg, max_len=2048,
+                                        page_size=PS, kv_pages=256, device=dev,
+                                        params=params)
+    a, b, c = mk(), mk(), mk()
+    rng = np.random.default_rng(5)
+    ctx = rng.integers(300, cfg.vocab_size, size=600).tolist()
+    p1 = rng.integers(300, cfg.vocab_size, size=45).tolist()
+    r1 = a.completion(ctx, p1, 16, cache_key="roamer")
+    hist = ctx + p1 + r1.token_ids
+    t0 = time.perf_counter()
+    ship = a.export_kv_pages("roamer")
+    export_ms = (time.perf_counter() - t0) * 1e3
+    assert ship is not None and ship.token_ids == hist
+    t0 = time.perf_counter()
+    assert b.install_kv_pages("roamer", ship.token_ids, ship.payloads, 0)
+    install_ms = (time.perf_counter() - t0) * 1e3
+    ea = a.engine.session_pool.peek("roamer")
+    eb = b.engine.session_pool.peek("roamer")
+    full = len(hist) // PS
+    pa, pb = a.engine.session_pool.allocator.pools, b.engine.session_pool.allocator.pools
+    for ga, gb in zip(pa, pb):
+        for name in ("k", "v"):
+            for x, y in zip(ea.pages[:full], eb.pages[:full]):
+                assert torch.equal(ga[name][:, x].view(torch.int16),
+                                   gb[name][:, y].view(torch.int16)), (name, x, y)
+    t0 = time.perf_counter()
+    assert c.prime("roamer", hist)
+    prime_ms = (time.perf_counter() - t0) * 1e3
+    p2 = rng.integers(300, cfg.vocab_size, size=30).tolist()
+    out = {}
+    for name, svc, source in (("ship", b, "pages"), ("prime", c, "tokens")):
+        r = svc.completion(hist, p2, 16, cache_key="roamer")
+        assert r.warm_start and r.warm_source == source, (name, r.warm_source)
+        assert r.reused_tokens == len(hist) and r.prefill_tokens == len(p2), (
+            name, r.reused_tokens, r.prefill_tokens)
+        out[name] = r
+    # the origin's own next turn, for comparison: its tail page was written
+    # by decode steps, the installer's by a prefill chunk, so bf16 near-ties
+    # may flip; reported, not required
+    origin = a.completion(hist, p2, 16, cache_key="roamer")
+    report = {"pages_shipped": len(ship.payloads), "bytes": sum(map(len, ship.payloads)),
+              "export_ms": export_ms, "install_ms": install_ms, "prime_ms": prime_ms,
+              "ttft_ms_after_ship": out["ship"].ttft_ms,
+              "ttft_ms_after_prime": out["prime"].ttft_ms,
+              "ship_tokens_equal_origin": out["ship"].token_ids == origin.token_ids,
+              "ship_tokens_equal_prime": out["ship"].token_ids == out["prime"].token_ids}
+    log(f"migration: {full} full pages of a {len(hist)}-token session round-trip "
+        f"bit-exact; warm starts 'pages' and 'tokens' prefill only the {len(p2)}-token "
+        f"prompt: {json.dumps(report)}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -508,14 +960,29 @@ def main() -> int:
     k1 = phase_k1(dev, n_layers)
     k3 = phase_k3(dev, n_layers)
     svc, last_turn, launches, summary = phase_main(dev)
-    k1["launches"], k3["launches"] = launches["paged_attention"], launches["chunked_prefill"]
     diff = phase_equivalence(svc, last_turn, dev)
     phase_profile(svc, last_turn, dev)
+    del svc, last_turn
+    torch.cuda.empty_cache()
+    k2 = phase_k2(dev, n_layers)
+    bsvc, blaunches, bsummary, beq = phase_batched(dev)
+    # the launches reported are the batched path's: it runs all three kernels
+    k1["launches"] = blaunches["paged_attention"]
+    k2["launches"] = blaunches["shared_prefix"]
+    k3["launches"] = blaunches["chunked_prefill"]
+    log(f"batched vs single stream (this run): decode {bsummary['decode_ms_per_step_b8_p50']:.3f}"
+        f" ms per B = {N_SLOTS} step ({bsummary['decode_tokens_per_s_b8']:.2f} tokens/s) vs "
+        f"{summary['decode_ms_per_token_p50']:.3f} ms per B = 1 token "
+        f"({1e3 / summary['decode_ms_per_token_p50']:.2f} tokens/s)")
+    migration = phase_migration(bsvc.server.params, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"main_path": dict(summary, max_logit_diff=diff)}))
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k3)]}))
+    print(json.dumps({"main_path": dict(summary, max_logit_diff=diff,
+                                        launches_single_stream=launches)}))
+    print(json.dumps({"batched_path": dict(bsummary, **beq, k2_extra={
+        k: v for k, v in k2.items() if k not in keys}), "migration": migration}))
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,17 @@
 // bound (B,) = clip(ceil((q_pos+1)/ps), 1, MP), q_pos (B,), kv_pos (B, MP*ps);
 // output (B, KV, G, Dh) in q's dtype. Mask 0 <= kv_pos <= q_pos, optional
 // sliding window and tanh logit softcap; f32 online softmax; a lane with no
-// valid key writes exact zeros. The shared-prefix continuation (start/init,
-// fed by shared_prefix_pallas) is not part of this kernel yet.
+// valid key writes exact zeros.
+//
+// Continuation mode (the suffix pass of the shared-prefix cascade, JAX's
+// start/init arguments): with `start` > 0 the walk begins at page `start`,
+// and with acc0/m0/l0 (f32, (B, KV, G, Dh) and (B, KV, G) — the stats the
+// shared-prefix kernel, csrc/shared_prefix.cu, emits over pages [0, start))
+// the online-softmax state is seeded from them instead of the empty state:
+// the exact continuation of the single-pass recurrence. A lane whose bound
+// is <= start (its query lies inside the shared run) walks nothing and
+// finalises straight from the seed. start = 0 with null seeds is the plain
+// single-pass kernel.
 //
 // What bounds it on this card: bytes. Each visited token costs
 // 2 * KV * Dh * sizeof(T) bytes of K/V and ~4 * G * Dh flops per KV head,
@@ -47,8 +56,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ pool_k,
     const T* __restrict__ pool_v, const int* __restrict__ table,
     const int* __restrict__ bound, const int* __restrict__ q_pos,
-    const int* __restrict__ kv_pos, T* __restrict__ out, int KV, int G, int P,
-    int ps, int MP, int window, float softcap, float scale) {
+    const int* __restrict__ kv_pos, const float* __restrict__ acc0,
+    const float* __restrict__ m0, const float* __restrict__ l0,
+    T* __restrict__ out, int KV, int G, int P, int ps, int MP, int window,
+    int start, float softcap, float scale) {
   constexpr int VS = DH + 4;  // padded V row stride (floats)
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                      // G * DH query rows
@@ -63,19 +74,23 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int GD = G * DH;
 
-  const T* qb = q + ((size_t)b * KV + h) * GD;
+  const size_t lane_head = (size_t)b * KV + h;
+  const T* qb = q + lane_head * GD;
   for (int i = tid; i < GD; i += kThreads) q_s[i] = to_float(qb[i]);
   for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+    m_s[g] = m0 != nullptr ? m0[lane_head * G + g] : kNegInf;
+    l_s[g] = l0 != nullptr ? l0[lane_head * G + g] : 0.f;
   }
   float acc[kMaxAcc];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kMaxAcc; ++j) {
+    const int idx = tid + j * kThreads;
+    acc[j] = (acc0 != nullptr && idx < GD) ? acc0[lane_head * GD + idx] : 0.f;
+  }
 
   const int qp = q_pos[b];
   const int hi = bound[b] * ps;
-  const int lo = window > 0 ? max(0, qp - window + 1) : 0;
+  const int lo = max(start * ps, window > 0 ? max(0, qp - window + 1) : 0);
   const size_t tok_stride = (size_t)KV * DH;
 
   for (int t0 = lo; t0 < hi; t0 += kThreads) {
@@ -159,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   __syncthreads();
 
-  T* ob = out + ((size_t)b * KV + h) * GD;
+  T* ob = out + lane_head * GD;
 #pragma unroll
   for (int j = 0; j < kMaxAcc; ++j) {
     const int idx = tid + j * kThreads;
@@ -174,9 +189,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    const void* table, const void* bound, const void* q_pos,
-                   const void* kv_pos, void* out, int B, int KV, int G, int P,
-                   int ps, int MP, int window, float softcap, float scale,
-                   cudaStream_t stream) {
+                   const void* kv_pos, const void* acc0, const void* m0,
+                   const void* l0, void* out, int B, int KV, int G, int P,
+                   int ps, int MP, int window, int start, float softcap,
+                   float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)G * DH + (size_t)kThreads * (DH + 4) +
                                        (size_t)G * kThreads + 3 * (size_t)G) +
                       sizeof(int) * kThreads;
@@ -190,21 +206,25 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
       static_cast<const T*>(q), static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), static_cast<const int*>(table),
       static_cast<const int*>(bound), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<T*>(out), KV, G, P, ps, MP,
-      window, softcap, scale);
+      static_cast<const int*>(kv_pos), static_cast<const float*>(acc0),
+      static_cast<const float*>(m0), static_cast<const float*>(l0),
+      static_cast<T*>(out), KV, G, P, ps, MP, window, start, softcap, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* pool_k,
                         const void* pool_v, const void* table, const void* bound,
-                        const void* q_pos, const void* kv_pos, void* out, int B,
+                        const void* q_pos, const void* kv_pos, const void* acc0,
+                        const void* m0, const void* l0, void* out, int B,
                         int KV, int G, int P, int ps, int MP, int window,
-                        float softcap, float scale, cudaStream_t stream) {
-#define REPRO_PAGED_CASE(D)                                                   \
-  case D:                                                                     \
-    return launch<T, D>(q, pool_k, pool_v, table, bound, q_pos, kv_pos, out, \
-                        B, KV, G, P, ps, MP, window, softcap, scale, stream);
+                        int start, float softcap, float scale,
+                        cudaStream_t stream) {
+#define REPRO_PAGED_CASE(D)                                                  \
+  case D:                                                                    \
+    return launch<T, D>(q, pool_k, pool_v, table, bound, q_pos, kv_pos,     \
+                        acc0, m0, l0, out, B, KV, G, P, ps, MP, window,     \
+                        start, softcap, scale, stream);
   switch (Dh) {
     REPRO_PAGED_CASE(16)
     REPRO_PAGED_CASE(32)
@@ -221,23 +241,30 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* pool_k,
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, allocates
 // nothing, does not synchronise; returns cudaGetLastError() after the launch.
+// acc0/m0/l0 are null (start from the empty state) or all three set.
 extern "C" int repro_paged_attention(const void* q, const void* pool_k,
                                      const void* pool_v, const void* table,
                                      const void* bound, const void* q_pos,
-                                     const void* kv_pos, void* out, int B, int KV,
-                                     int G, int Dh, int P, int ps, int MP,
-                                     int window, float softcap, float scale,
-                                     int dtype, void* stream) {
+                                     const void* kv_pos, const void* acc0,
+                                     const void* m0, const void* l0, void* out,
+                                     int B, int KV, int G, int Dh, int P, int ps,
+                                     int MP, int window, int start,
+                                     float softcap, float scale, int dtype,
+                                     void* stream) {
   using namespace repro_torch;
   if (G * Dh > kThreads * kMaxAcc) return (int)cudaErrorInvalidValue;
+  if (start < 0 || start >= MP) return (int)cudaErrorInvalidValue;
+  if ((acc0 == nullptr) != (m0 == nullptr) || (m0 == nullptr) != (l0 == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
     return (int)dispatch_dh<__nv_bfloat16>(Dh, q, pool_k, pool_v, table, bound,
-                                           q_pos, kv_pos, out, B, KV, G, P, ps,
-                                           MP, window, softcap, scale, s);
+                                           q_pos, kv_pos, acc0, m0, l0, out, B,
+                                           KV, G, P, ps, MP, window, start,
+                                           softcap, scale, s);
   if (dtype == kFloat32)
     return (int)dispatch_dh<float>(Dh, q, pool_k, pool_v, table, bound, q_pos,
-                                   kv_pos, out, B, KV, G, P, ps, MP, window,
-                                   softcap, scale, s);
+                                   kv_pos, acc0, m0, l0, out, B, KV, G, P, ps,
+                                   MP, window, start, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

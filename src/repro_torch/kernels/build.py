@@ -118,13 +118,17 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.repro_paged_attention.argtypes = (
-                [vp] * 8 + [i] * 8 + [f, f, i, vp]
+                [vp] * 11 + [i] * 9 + [f, f, i, vp]
             )
             lib.repro_paged_attention.restype = i
             lib.repro_chunked_prefill.argtypes = (
                 [vp] * 7 + [i] * 9 + [f, f, i, vp]
             )
             lib.repro_chunked_prefill.restype = i
+            lib.repro_shared_prefix.argtypes = (
+                [vp] * 8 + [i] * 8 + [f, f, i, vp]
+            )
+            lib.repro_shared_prefix.restype = i
             _lib = lib
     return _lib
 

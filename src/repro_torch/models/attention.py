@@ -152,18 +152,21 @@ def attention_decode_paged(
     window: int = 0,
     lin_k: Optional[torch.Tensor] = None,  # (B, MP*ps, KV, Dh) pre-gathered view
     lin_v: Optional[torch.Tensor] = None,
+    shared_pages: Optional[torch.Tensor] = None,  # (S,) common leading pages
 ) -> torch.Tensor:
     """Page-table-aware decode. The kernel path attends through the page
-    table (``kernels.paged_attention``: K1); the reference path gathers the
-    lane's pages into the linear view (or takes the caller's hoisted
-    ``lin_k``/``lin_v``) and runs the position-masked SDPA."""
+    table (``kernels.paged_attention``: K1, and with ``shared_pages`` the
+    cascade K2 then K1 over each lane's suffix); the reference path gathers
+    the lane's pages into the linear view (or takes the caller's hoisted
+    ``lin_k``/``lin_v``) and runs the position-masked SDPA — it reads each
+    page once per lane anyway and ignores ``shared_pages``, as in JAX."""
     if cfg.attn_impl != "reference":
         from ..kernels.paged_attention import ops as paged_ops
 
         b = x.shape[0]
         q = _project_q_step(p, x, positions, cfg)
         out = paged_ops.paged_attention(
-            q, pool_k, pool_v, page_table, positions, kv_pos,
+            q, pool_k, pool_v, page_table, positions, kv_pos, shared_pages,
             window=window, softcap=cfg.attn_softcap,
         )
         return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p["wo"]

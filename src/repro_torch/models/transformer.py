@@ -85,6 +85,7 @@ def _dense_block_decode_paged(
     pool_k: torch.Tensor, pool_v: torch.Tensor, page_table: torch.Tensor,
     kv_pos: torch.Tensor, cfg: ModelConfig, window: int, page_size: int,
     lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
+    shared_pages: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One paged decode layer: write the token's K/V into its page cell,
     attend through the page table, then the MLP. On the reference path the
@@ -101,7 +102,7 @@ def _dense_block_decode_paged(
         lin_v[bi, pos[bi].long()] = v_new[bi, 0].to(lin_v.dtype)
     h = attention_decode_paged(
         bp["attn"], h_in, positions, pool_k, pool_v, page_table, kv_pos, cfg,
-        window=window, lin_k=lin_k, lin_v=lin_v,
+        window=window, lin_k=lin_k, lin_v=lin_v, shared_pages=shared_pages,
     )
     x = x + h
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
@@ -115,13 +116,21 @@ def decode_step_paged(
     kv_pos: torch.Tensor,        # (B, MP*ps) slot positions, updated in place
     tokens: torch.Tensor,        # (B, 1)
     pos: torch.Tensor,           # (B,) absolute position of this token
+    shared_pages: Optional[torch.Tensor] = None,  # (S,) common leading pages
 ) -> torch.Tensor:
     """serve_step against a paged KV pool (``repro.models.transformer.
     decode_step_paged``): returns the logits (B, 1, V). The token's K/V land
-    in ``pools`` and its position in ``kv_pos``, both in place (a lane at
-    table capacity has both dropped). With the kernels each layer attends
-    straight through the page table (K1); the reference path gathers the
-    whole stack's pages once per step, before any layer writes."""
+    in ``pools`` and its position in ``kv_pos``, both in place; a lane whose
+    position is at or past the table's width (at capacity, or pushed there
+    by the batched server for a lane that must not decode) has both
+    dropped. ``page_table``/``kv_pos`` may be trimmed to fewer pages than
+    the lanes' full width, as long as every decoding lane's tokens fit in
+    it (slot == position). With the kernels each layer attends straight
+    through the page table (K1), and with ``shared_pages`` — a run of pages
+    every lane's table starts with — through the cascade (K2, then K1 over
+    each lane's suffix); the reference path ignores ``shared_pages`` and
+    gathers the whole stack's pages once per step, before any layer
+    writes."""
     positions = pos[:, None].to(torch.int32)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     page_size = pools[0]["k"].shape[2]
@@ -135,5 +144,6 @@ def decode_step_paged(
                 bp, x, positions, pool["k"][i], pool["v"][i], page_table, kv_pos,
                 cfg, 0, page_size,
                 None if use_kernel else lin_k[i], None if use_kernel else lin_v[i],
+                shared_pages=shared_pages if use_kernel else None,
             )
     return unembed(params["embed"], x, cfg)

@@ -1,22 +1,31 @@
-from .chunked_prefill import PagedPrefiller
+from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .engine import (
     GenerateResult,
     InferenceEngine,
+    NodeShipProfile,
     PagePoolExhausted,
+    PageShipment,
     ServiceCapabilities,
     ServiceResult,
     TorchLLMService,
+    prime_session_pool,
     truncate_for_cache,
 )
 from .paged_kv import SCRATCH_PAGE, PagedKVAllocator, PrefixPageIndex, page_digests
 from .sampling import sample
+from .scheduler import BatchedLLMService, BatchedServer, FinishedRequest, SlotState
 from .session_cache import CacheEntry, SessionCachePool
 
 __all__ = [
+    "BatchedLLMService",
+    "BatchedServer",
     "CacheEntry",
+    "FinishedRequest",
     "GenerateResult",
     "InferenceEngine",
+    "NodeShipProfile",
     "PagePoolExhausted",
+    "PageShipment",
     "PagedKVAllocator",
     "PagedPrefiller",
     "PrefixPageIndex",
@@ -24,8 +33,11 @@ __all__ = [
     "ServiceCapabilities",
     "ServiceResult",
     "SessionCachePool",
+    "SlotState",
     "TorchLLMService",
     "page_digests",
+    "prime_fill_pages",
+    "prime_session_pool",
     "sample",
     "truncate_for_cache",
 ]

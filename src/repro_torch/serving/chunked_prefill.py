@@ -11,11 +11,12 @@ the JAX package's, and the two packages compare like with like.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..device import synchronize
 from ..models import ModelConfig
 from ..models.prefill import prefill_chunk_paged
 from .paged_kv import PagedKVAllocator
@@ -94,3 +95,82 @@ class PagedPrefiller:
             i += c
         assert logits is not None, (start, n)
         return logits
+
+
+def prime_fill_pages(
+    pool,
+    prefiller: PagedPrefiller,
+    token_ids: Sequence[int],
+    entry,
+    usable: int,
+    shipped: Optional[Sequence[bytes]] = None,
+    ship_have: int = 0,
+) -> Optional[List[int]]:
+    """Chunk-prefill ``token_ids`` straight into pages for a session-pool
+    entry — the paged warm-start prime path
+    (``repro.serving.chunked_prefill.prime_fill_pages``), shared by the
+    batched server and the single-stream engine. Off the serving hot path,
+    so the whole suffix drains in one loop.
+
+    Shares the matched ``entry``'s full pages (its tail page copied when
+    coverage ends mid-page) or a cross-session content-index run; no
+    ``n - 1`` cap as at admission — prime needs no logits, so a fully
+    covering share is a pure-incref prime. Returns the page list (refs
+    owned by the caller's entry-to-be) or None when the pool can't cover
+    the context: prime is best-effort and never reclaims other sessions'
+    entries.
+
+    With ``shipped``, this is the KV-page install path: ``shipped[i]``
+    holds the bytes of full page ``ship_have + i`` of ``token_ids``'s KV,
+    digest-verified by the shipper. Those pages are imported as they are;
+    only the uncovered gap before them and the partial tail page are
+    chunk-prefilled."""
+    alloc = prefiller.alloc
+    ps = alloc.page_size
+    token_ids = list(token_ids)
+    n = len(token_ids)
+    tail_src: Optional[int] = None
+    if entry is not None and usable > 0:
+        cover = usable
+        shared = list(entry.pages[: cover // ps])
+        if cover % ps:
+            tail_src = entry.pages[cover // ps]
+    else:
+        shared = list(alloc.match_prefix(token_ids, n))
+        cover = len(shared) * ps
+    skip = len(shared)
+    fresh_needed = alloc.pages_for(n) - skip
+    if fresh_needed > alloc.n_free:
+        return None
+    if shared:
+        alloc.incref(shared)
+    fresh = alloc.alloc(fresh_needed)
+    if fresh is None:
+        if shared:
+            alloc.decref(shared)
+        return None
+    pages = shared + fresh
+    if tail_src is not None:
+        alloc.copy_page(tail_src, fresh[0])
+    if shipped is not None:
+        # import the verified bytes into fresh pages (never into a shared,
+        # refcounted page: the import range starts at max(skip, ship_have)),
+        # compute only the gap below them and the tail beyond them
+        want = min(n // ps, ship_have + len(shipped))
+        gs = min(max(skip, ship_have), want)
+        for i in range(gs, want):
+            alloc.import_page_bytes(pages[i], shipped[i - ship_have])
+        if cover < gs * ps:
+            prefiller.prefill_ids(pages, token_ids[: gs * ps], cover, n_skip=skip)
+        t0 = max(cover, want * ps)
+        if t0 < n:
+            prefiller.prefill_ids(pages, token_ids, t0, n_skip=skip)
+    elif cover < n:
+        prefiller.prefill_ids(pages, token_ids, cover, n_skip=skip)
+    # the prime's compute must finish inside the off-hot-path window
+    # (client think time), not contend with the next serving turn
+    synchronize(prefiller.device)
+    if pool is not None and shared and entry is None:
+        pool.shared_hits += 1
+        pool.shared_tokens += cover
+    return pages

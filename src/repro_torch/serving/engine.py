@@ -10,10 +10,15 @@ straight into KV pages, decode runs through the page table, and the pages
 move into the pool entry afterwards. On a GPU both attention steps run the
 hand-written CUDA kernels (``repro_torch.kernels``).
 
+The migration warm-start hooks make a torch node a DisCEdge node: when a
+replicated tokenized context lands here, ``prime`` chunk-prefills it into
+pages, and ``install_kv_pages`` imports the digest-verified KV pages
+another node shipped (``export_kv_pages`` is the sending side; the wire
+format is the JAX package's, so JAX and torch nodes ship to each other).
+
 Routes this slice does not carry raise ``NotImplementedError`` naming the
 ROADMAP item: keyless or ``kv_reuse=False`` requests (the dense route,
-Queue 1 item 6) and the migration hooks ``prime``/``install_kv_pages``
-(the next slice). Where the JAX engine falls back to the dense route on
+Queue 1 item 6). Where the JAX engine falls back to the dense route on
 page exhaustion at admission, this one raises :class:`PagePoolExhausted`.
 """
 
@@ -29,18 +34,19 @@ import torch
 from ..device import DeviceLike, resolve_device, synchronize
 from ..models import ModelConfig, decode_step_paged, init_params, supports_append
 from ..tokenizer import EOS, IM_END, ByteLevelBPE, get_tokenizer
-from .chunked_prefill import PagedPrefiller
+from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .paged_kv import PagedKVAllocator
 from .sampling import sample
-from .session_cache import CacheEntry, SessionCachePool, warm_source_of
+from .session_cache import (
+    CacheEntry,
+    SessionCachePool,
+    longest_common_prefix,
+    warm_source_of,
+)
 
 DENSE_ROUTE = (
     "the dense route (keyless or kv_reuse=False requests) is not ported yet "
     "(ROADMAP, Queue 1 item 6)"
-)
-MIGRATION_HOOKS = (
-    "prime/install_kv_pages belong to the next slice of the port "
-    "(ROADMAP, Queue 1 items 4-5)"
 )
 
 
@@ -84,6 +90,32 @@ class ServiceResult:
     decode_p99_ms: float = 0.0
 
 
+# ---------------------------------------------------------------------------
+# KV-page shipping contract — copies of repro.store.kv_ship's dataclasses, so
+# a JAX KVShipper can drive a torch node's hooks by duck typing
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class NodeShipProfile:
+    """One node's shipping constants (``repro.store.kv_ship.NodeShipProfile``):
+    a page's size on the wire and the node's measured prefill cost."""
+
+    page_size: int
+    page_wire_bytes: int
+    prefill_ms_per_token: float
+    state_is_o1: bool = False
+
+
+@dataclass
+class PageShipment:
+    """A sender-side export (``repro.store.kv_ship.PageShipment``): the
+    token ids whose KV the pages hold and one payload per resident full
+    page, index-aligned from page 0."""
+
+    token_ids: List[int]
+    payloads: List[bytes]
+
+
 def truncate_for_cache(
     context_ids: List[int],
     prompt_ids: List[int],
@@ -107,6 +139,64 @@ def truncate_for_cache(
     ids = context_ids + prompt_ids
     budget = max(1, max_len - len(ids) - 1)
     return ids, min(max_new_tokens, budget)
+
+
+def prime_session_pool(
+    pool: Optional[SessionCachePool],
+    cache_key: str,
+    token_ids: List[int],
+    max_input: int,
+    paged_fill: Callable,   # (ids, entry|None, usable) -> pages|None
+    source: str = "prime",  # provenance of a FRESH install ("prime" = token
+                            # recompute, "ship" = shipped KV pages)
+) -> Tuple[bool, bool]:
+    """Migration warm-start core shared by the single-stream engine and the
+    batched server (``repro.serving.engine.prime_session_pool``, paged
+    branch). Returns ``(warm, stored)``: ``warm`` — the pool now holds KV
+    for the full sequence; ``stored`` — prefill or install work ran.
+
+    Guards, in order: nothing to do without a pool or tokens; a context
+    longer than ``max_input`` is truncated on the serving path and could
+    never prefix-match; a fresh prime into a full pool would be dropped by
+    the low-priority put. A diverged entry is invalidated; an entry
+    covering everything is a no-op; otherwise only the delta is filled.
+    Extending an entry keeps its provenance and its LRU position."""
+    if pool is None or not token_ids:
+        return False, False
+    n = len(token_ids)
+    if n > max_input:
+        return False, False
+    entry = pool.peek(cache_key)
+    if entry is None and len(pool) >= pool.capacity:
+        return False, False
+    usable = 0
+    if entry is not None:
+        lcp = longest_common_prefix(entry.token_ids, token_ids)
+        if lcp < entry.pos and lcp < n:
+            pool.invalidate(cache_key)  # diverged: stale/edited history
+        elif entry.pos >= n:
+            return True, False          # already warm (covers everything)
+        else:
+            usable = lcp                # == entry.pos: extend the delta
+    if pool.allocator is None or (usable > 0 and not entry.paged):
+        # JAX primes such pools through a dense lane
+        raise NotImplementedError(
+            "priming a dense session pool is the dense route, not ported yet "
+            "(ROADMAP, Queue 1 item 6)"
+        )
+    pages = paged_fill(token_ids, entry if usable > 0 else None, usable)
+    if pages is None:
+        return False, False
+    pool.put(
+        cache_key,
+        CacheEntry(
+            token_ids=list(token_ids), pages=pages,
+            source=entry.source if usable > 0 else source,
+        ),
+        low_priority=True,
+    )
+    pool.primes += 1
+    return True, True
 
 
 @dataclass
@@ -137,6 +227,9 @@ class InferenceEngine:
     stop_tokens: Tuple[int, ...] = (EOS, IM_END)
     session_pool: Optional[SessionCachePool] = None
     _prefiller: Optional[PagedPrefiller] = field(default=None, repr=False)
+    # migration warm-start accounting (prime runs off the serving hot path)
+    prime_count: int = 0
+    prime_ms: float = 0.0
 
     @classmethod
     def create(
@@ -186,6 +279,54 @@ class InferenceEngine:
                 self.cfg, self.params, self.session_pool.allocator, self.device
             )
         return self._prefiller
+
+    # -- migration warm-start ----------------------------------------------
+    def prime(self, cache_key: str, token_ids: List[int]) -> bool:
+        """Pre-warm the session pool for ``cache_key`` with the KV state of
+        ``token_ids`` — the migration warm-start path, called off the
+        serving hot path when a replicated tokenized context lands on this
+        node: the roaming client's first turn here then prefills only its
+        new tokens. The overflow bound matches ``TorchLLMService.
+        completion``'s truncation (generation reserve 16). Returns True
+        when the pool now holds KV for the full sequence."""
+        return self._prime(cache_key, token_ids, None, 0, "prime")
+
+    def install_shipped_pages(
+        self,
+        cache_key: str,
+        token_ids: List[int],
+        payloads: List[bytes],
+        have_pages: int,
+    ) -> bool:
+        """Install digest-verified shipped KV pages: ``payloads`` hold the
+        full pages ``[have_pages, have_pages + len(payloads))`` of
+        ``token_ids``'s KV, exported by the origin's allocator. They are
+        imported into fresh pages; only the partial tail page (and any
+        coverage gap) is prefilled. The entry's provenance is ``"ship"``,
+        so the next turn's warm start reports ``"pages"``. False when the
+        pages can't be taken — the shipper then recomputes from tokens."""
+        return self._prime(cache_key, token_ids, payloads, have_pages, "ship")
+
+    def _prime(
+        self, cache_key: str, token_ids: List[int],
+        shipped: Optional[List[bytes]], have_pages: int, source: str,
+    ) -> bool:
+        pool = self.session_pool
+        if pool is None:
+            return False
+        t0 = time.perf_counter()
+        warm, stored = prime_session_pool(
+            pool, cache_key, list(token_ids), self.max_len - 1 - 16,
+            lambda ids, entry, usable: prime_fill_pages(
+                pool, self._paged_prefiller(), ids, entry, usable,
+                shipped=shipped, ship_have=have_pages,
+            ),
+            source=source,
+        )
+        if stored:
+            self.prime_count += 1
+            self.prime_ms += (time.perf_counter() - t0) * 1e3
+        return warm
 
     # -- public API ------------------------------------------------------------
     def generate_ex(
@@ -352,6 +493,37 @@ class InferenceEngine:
         return pages
 
 
+def export_entry_pages(
+    pool: Optional[SessionCachePool], cache_key: str
+) -> Optional[PageShipment]:
+    """The full pages of ``cache_key``'s paged session entry as a
+    :class:`PageShipment` (native-dtype bytes: the round trip is
+    bit-exact), or None (no entry, or not one full page yet)."""
+    entry = pool.peek(cache_key) if pool is not None else None
+    if entry is None or not entry.paged:
+        return None
+    alloc = pool.allocator
+    full = entry.pos // alloc.page_size
+    if full <= 0:
+        return None
+    return PageShipment(
+        token_ids=list(entry.token_ids[: entry.pos]),
+        payloads=[alloc.export_page_bytes(p) for p in entry.pages[:full]],
+    )
+
+
+def resident_entry_pages(
+    pool: Optional[SessionCachePool], cache_key: str, token_ids: List[int]
+) -> int:
+    """Full prefix pages of ``token_ids`` that ``cache_key``'s entry already
+    holds — shipped deltas skip them."""
+    entry = pool.peek(cache_key) if pool is not None else None
+    if entry is None or not entry.paged:
+        return 0
+    lcp = longest_common_prefix(entry.token_ids[: entry.pos], list(token_ids))
+    return lcp // pool.allocator.page_size
+
+
 @dataclass
 class TorchLLMService:
     """LLM Service (paper §3.2) backed by the PyTorch engine — the
@@ -366,6 +538,9 @@ class TorchLLMService:
     engine: InferenceEngine
     tokenizer: ByteLevelBPE
     kv_reuse: bool = True
+    # measured prefill cost for the KV-ship cost model (ms per token on
+    # this node's card); 0 keeps this node out of page shipping
+    ship_prefill_ms_per_token: float = 0.0
     _busy_until: float = field(default=0.0, repr=False, compare=False)
     _clock_owner: Optional[object] = field(default=None, repr=False, compare=False)
 
@@ -395,16 +570,48 @@ class TorchLLMService:
 
     def capabilities(self) -> ServiceCapabilities:
         return ServiceCapabilities(
-            prime=False, kv_reuse=self.kv_reuse, batched=False, n_slots=1
+            prime=self.engine.session_pool is not None, kv_reuse=self.kv_reuse,
+            batched=False, n_slots=1,
         )
 
     def prime(self, cache_key: str, token_ids: List[int]) -> bool:
-        raise NotImplementedError(MIGRATION_HOOKS)
+        """Migration warm-start entry point (the EdgeNode's replication
+        arrival hook, off the serving hot path): prefill the replicated
+        tokenized context into the session pool so the roaming client's
+        next turn here is suffix-only."""
+        if not self.kv_reuse:
+            return False
+        return self.engine.prime(cache_key, list(token_ids))
+
+    # -- KV-page shipping hooks (driven by repro.store.kv_ship.KVShipper) --
+    def kv_ship_profile(self) -> Optional[NodeShipProfile]:
+        """This node's shipping constants, or None when it can't ship (reuse
+        off, or no measured prefill constant)."""
+        pool = self.engine.session_pool
+        if not self.kv_reuse or pool is None or self.ship_prefill_ms_per_token <= 0:
+            return None
+        return NodeShipProfile(
+            page_size=pool.allocator.page_size,
+            page_wire_bytes=pool.allocator.page_bytes,
+            prefill_ms_per_token=self.ship_prefill_ms_per_token,
+        )
+
+    def export_kv_pages(self, cache_key: str) -> Optional[PageShipment]:
+        return export_entry_pages(self.engine.session_pool, cache_key)
 
     def install_kv_pages(
         self, cache_key: str, token_ids: List[int], payloads: List[bytes], have_pages: int
     ) -> bool:
-        raise NotImplementedError(MIGRATION_HOOKS)
+        """Install digest-verified shipped pages into the session pool (the
+        KVShipper's installer hook)."""
+        if not self.kv_reuse:
+            return False
+        return self.engine.install_shipped_pages(
+            cache_key, list(token_ids), payloads, have_pages
+        )
+
+    def resident_ship_pages(self, cache_key: str, token_ids: List[int]) -> int:
+        return resident_entry_pages(self.engine.session_pool, cache_key, token_ids)
 
     def resident_keys(self) -> Dict[str, int]:
         """Cache key -> resident KV token count (fleet telemetry)."""

@@ -2,7 +2,9 @@
 counterpart of ``repro.serving.paged_kv``, as far as the paged route needs
 it: page lifecycle (``alloc``/``incref``/``decref``), cross-session prefix
 sharing (``PrefixPageIndex``, ``match_prefix``, ``register_pages``), page
-tables (``table_for``) and the tail-page handoff (``copy_page``).
+tables (``table_for``), the tail-page handoff (``copy_page``), memory
+accounting (``page_bytes``, ``stats``) and the KV-page shipping wire format
+(``export_page_bytes``/``import_page_bytes``).
 
 One shared physical pool of fixed-size KV pages per node service, and
 per-sequence page tables sized to each sequence's actual token count.
@@ -12,9 +14,9 @@ reference-counted per page; page id 0 is the scratch page (table padding),
 never allocated.
 
 The pools are long-lived device tensors that compute writes **in place**
-(``models.cache``); ``copy_page`` copies in place too. The JAX package's
-dense-lane moves (``store``/``gather``/``write_through``) and page export
-and import belong to the dense route and the next slice.
+(``models.cache``); ``copy_page`` and ``import_page_bytes`` write in place
+too. The JAX package's dense-lane moves (``store``/``gather``/
+``write_through``) belong to the dense route (ROADMAP, Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -87,11 +89,16 @@ class PrefixPageIndex:
         if d is not None:
             del self._by_digest[d]
 
+    def __len__(self) -> int:
+        return len(self._by_page)
+
 
 class PagedKVAllocator:
     """Owns the shared physical KV page pool of one node service.
     ``n_pages`` counts physical pages including the scratch page. Policy
-    free: what to evict is the session pool's call."""
+    free: what to evict is the session pool's call. ``share_prefixes``
+    False turns cross-session prefix sharing off (nothing is indexed or
+    matched)."""
 
     def __init__(
         self,
@@ -99,6 +106,7 @@ class PagedKVAllocator:
         page_size: int = 16,
         n_pages: int = 256,
         device: Optional[torch.device] = None,
+        share_prefixes: bool = True,
     ) -> None:
         if not supports_append(cfg):
             raise NotImplementedError(
@@ -109,6 +117,7 @@ class PagedKVAllocator:
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
+        self.share_prefixes = share_prefixes
         self.index = PrefixPageIndex()
         self.pools: List[Dict[str, torch.Tensor]] = [
             init_paged_pool(cfg, spec.n_blocks, n_pages, page_size, device)
@@ -127,9 +136,28 @@ class PagedKVAllocator:
     def used_pages(self) -> int:
         return (self.n_pages - 1) - len(self._free)
 
+    @property
+    def page_bytes(self) -> int:
+        """Bytes of one physical page across all layers/groups (k + v)."""
+        return sum(
+            pool[name][:, 0].numel() * pool[name].element_size()
+            for pool in self.pools for name in ("k", "v")
+        )
+
+    @property
+    def resident_kv_bytes(self) -> int:
+        return self.used_pages * self.page_bytes
+
+    @property
+    def total_kv_bytes(self) -> int:
+        return (self.n_pages - 1) * self.page_bytes
+
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` positions (at least one)."""
         return max(1, -(-n_tokens // self.page_size))
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
 
     # -- page lifecycle -------------------------------------------------
     def alloc(self, n: int) -> Optional[List[int]]:
@@ -165,7 +193,7 @@ class PagedKVAllocator:
         """Longest run of resident full prefix pages matching ``token_ids``
         (chained content hash), across every session; at most
         ``max_tokens`` leading tokens are considered. No references taken."""
-        if not token_ids:
+        if not self.share_prefixes or not token_ids:
             return []
         n = len(token_ids) if max_tokens is None else min(len(token_ids), max_tokens)
         return self.index.lookup_run(
@@ -175,6 +203,8 @@ class PagedKVAllocator:
     def register_pages(self, token_ids: Sequence[int], pages: Sequence[int]) -> None:
         """Index the full pages of an at-rest sequence for cross-session
         matching. Only for pages whose bytes are final."""
+        if not self.share_prefixes:
+            return
         for d, p in zip(page_digests(token_ids, self.page_size), pages):
             self.index.register(d, p)
 
@@ -196,3 +226,47 @@ class PagedKVAllocator:
         for pool in self.pools:
             for name in ("k", "v"):
                 pool[name][:, dst].copy_(pool[name][:, src])
+
+    # -- KV-page shipping wire format ----------------------------------------
+    def export_page_bytes(self, page: int) -> bytes:
+        """Serialize one physical page for shipping: per layer group, the K
+        block then the V block, each ``(L, page_size, KV, Dh)`` in the
+        pool's native dtype, C order, concatenated — byte for byte the JAX
+        package's format (``repro.serving.paged_kv.export_page_bytes``), so
+        pages shipped by a JAX node install here and the other way round.
+        The round trip is bit-exact (bf16 travels as its raw 16 bits)."""
+        return b"".join(
+            pool[name][:, page].contiguous().cpu().view(torch.uint8).numpy().tobytes()
+            for pool in self.pools for name in ("k", "v")
+        )
+
+    def import_page_bytes(self, page: int, data: bytes) -> None:
+        """Install bytes produced by :meth:`export_page_bytes` (on a pool of
+        the same model config, page size and dtype) into ``page``, in
+        place. A raw byte move: the shipping layer verifies content against
+        the token ground truth before calling this."""
+        if page == SCRATCH_PAGE:
+            raise ValueError("refusing to import into the scratch page")
+        if len(data) != self.page_bytes:
+            raise ValueError(f"page payload of {len(data)} bytes, expected {self.page_bytes}")
+        off = 0
+        for pool in self.pools:
+            for name in ("k", "v"):
+                cell = pool[name][:, page]                   # (L, ps, KV, Dh) view
+                n = cell.numel() * cell.element_size()
+                raw = np.frombuffer(data, np.uint8, count=n, offset=off).copy()
+                block = torch.from_numpy(raw).view(cell.dtype).reshape(cell.shape)
+                cell.copy_(block.to(cell.device))
+                off += n
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "n_pages": self.n_pages - 1,
+            "page_size": self.page_size,
+            "used_pages": self.used_pages,
+            "free_pages": self.n_free,
+            "page_bytes": self.page_bytes,
+            "resident_kv_bytes": self.resident_kv_bytes,
+            "total_kv_bytes": self.total_kv_bytes,
+            "indexed_pages": len(self.index),
+        }

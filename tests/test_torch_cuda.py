@@ -120,3 +120,93 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 4, 2, 32, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         paged_attention(q, pk.half(), pv.half(), table, q_pos, kv_pos)
+
+
+def _shared(dev, n_shared, suffixes, ps, H, KV, Dh, dtype, seed=0):
+    """Every lane's first ``n_shared`` pages are the same physical pages
+    (a shared system prompt); each lane owns fresh pages for its ragged
+    suffix. Returns the paged args plus the shared run."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(suffixes)
+    pages_of = lambda n: -(-n // ps)
+    mp = n_shared + max(max(pages_of(n) for n in suffixes), 1)
+    n_pages = 1 + n_shared + sum(pages_of(n) for n in suffixes)
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    shared = list(range(1, 1 + n_shared))
+    table = torch.zeros(B, mp, dtype=torch.int32)
+    kv_pos = torch.full((B, mp * ps), -1, dtype=torch.int32)
+    used = 1 + n_shared
+    for bi, sfx in enumerate(suffixes):
+        n = n_shared * ps + sfx
+        table[bi, :n_shared] = torch.tensor(shared, dtype=torch.int32)
+        for pj in range(pages_of(sfx)):
+            table[bi, n_shared + pj] = used
+            used += 1
+        kv_pos[bi, :n] = torch.arange(n, dtype=torch.int32)
+    q_pos = torch.tensor([[n_shared * ps + s - 1] for s in suffixes], dtype=torch.int32)
+    sp = torch.tensor(shared, dtype=torch.int32, device=dev)
+    return (q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)), sp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize(
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+)
+def test_shared_prefix_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
+    """K2 against its plain version on all of (acc, m, l): suffixes of
+    0 (query inside the run), 1, ps - 1, ps and 2 ps + 3 tokens."""
+    from repro_torch.kernels.paged_attention import shared_prefix, shared_prefix_ref
+
+    (q, pk, pv, _, q_pos, _), sp = _shared(dev, 3, (0, 1, ps - 1, ps, 2 * ps + 3),
+                                           ps, H, KV, Dh, dtype)
+    qr = q.reshape(q.shape[0], KV, H // KV, Dh)
+    before = shared_prefix.launches
+    got = shared_prefix(qr, pk, pv, sp, q_pos.reshape(-1))
+    assert shared_prefix.launches == before + 1
+    want = shared_prefix_ref(qr, pk, pv, sp, q_pos.reshape(-1))
+    torch.cuda.synchronize()
+    # stats are f32 sums of bf16 or f32 products in another order
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize(
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (-3, 30.0)], ids=["plain", "window-cap"])
+def test_cascade_matches_single_pass(dev, dtype, ps, H, KV, Dh, window, softcap):
+    """K2 then K1 in continuation mode equals the single-pass K1 and the
+    plain versions; ``window = -3`` stands for ps + 3, a window that cuts
+    into the shared run. The run of 3 pages also clamps to MP - 1 for the
+    lanes whose table is one page past it."""
+    from repro_torch.kernels.paged_attention import shared_prefix
+
+    window = ps + 3 if window < 0 else window
+    args, sp = _shared(dev, 3, (0, 1, ps - 1, ps, 2 * ps + 3), ps, H, KV, Dh, dtype, seed=2)
+    k1, k2 = paged_attention.launches, shared_prefix.launches
+    fused = paged_attention(*args, sp, window=window, softcap=softcap)
+    assert paged_attention.launches == k1 + 1 and shared_prefix.launches == k2 + 1
+    single = paged_attention(*args, window=window, softcap=softcap)
+    want = paged_attention_ref(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    for other in (single, want):
+        torch.testing.assert_close(fused.float(), other.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_cascade_run_clamps_to_table_width(dev):
+    """Every lane holds exactly the shared run (table width == run length):
+    the run clamps to MP - 1 so K1 still walks the last page."""
+    args, sp = _shared(dev, 3, (0, 0, 0), 8, 4, 2, 16, torch.float32, seed=3)
+    q, pk, pv, table, q_pos, kv_pos = args
+    args = (q, pk, pv, table[:, :3].contiguous(), q_pos, kv_pos[:, :24].contiguous())
+    fused = paged_attention(*args, sp)
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fused, want, rtol=2e-5, atol=2e-5)

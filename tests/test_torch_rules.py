@@ -64,13 +64,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import PAPER_QWEN15_0_5B
     from repro_torch.models import init_params, params_from_numpy
-    from repro_torch.serving import InferenceEngine, TorchLLMService
+    from repro_torch.serving import BatchedLLMService, InferenceEngine, TorchLLMService
 
     cfg = PAPER_QWEN15_0_5B.reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine.create(cfg, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchLLMService.create("m", cfg, kv_pages=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedLLMService.create("m", cfg, paged=True, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -79,13 +81,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     eng = InferenceEngine.create(cfg, kv_pages=8, max_len=64, device="cpu")
     assert eng.device.type == "cpu"
     assert next(iter(eng.params["embed"].values())).device.type == "cpu"
+    svc = BatchedLLMService.create("m", cfg, paged=True, kv_pages=8, max_len=64, device="cpu")
+    assert svc.server.device.type == "cpu"
+
+
+def test_full_width_batched_server_is_not_ported():
+    """The full-width batched server (paged=False) is the dense route: it
+    raises instead of running something else."""
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.serving import BatchedLLMService
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        BatchedLLMService.create("m", PAPER_QWEN15_0_5B.reduced(), device="cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors and launches
     its kernel only for CUDA tensors; any other device raises."""
     from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import paged_attention, shared_prefix
 
     meta = dict(device="meta")
     i32 = dict(dtype=torch.int32, **meta)
@@ -93,6 +107,10 @@ def test_kernel_wrappers_refuse_other_devices():
         paged_attention(torch.empty(1, 1, 4, 16, **meta), torch.empty(2, 8, 2, 16, **meta),
                         torch.empty(2, 8, 2, 16, **meta), torch.empty(1, 1, **i32),
                         torch.empty(1, 1, **i32), torch.empty(1, 8, **i32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        shared_prefix(torch.empty(1, 2, 2, 16, **meta), torch.empty(2, 8, 2, 16, **meta),
+                      torch.empty(2, 8, 2, 16, **meta), torch.empty(1, **i32),
+                      torch.empty(1, **i32))
     with pytest.raises(ValueError, match="unsupported device"):
         chunked_prefill_attention(torch.empty(1, 8, 4, 16, **meta),
                                   torch.empty(2, 8, 2, 16, **meta),

@@ -18,38 +18,59 @@ non-zero):
                incl. an empty one), then timed at the main path's shape;
 4. K3       — chunked paged prefill kernel vs its plain version (S = 256,
                p0 at 0 and mid-page, ragged true_len), then timed;
-5. main     — TorchLLMService at the full width of the paper's
+5. K4       — flash attention kernel vs its plain version in bf16 and in
+               f32 (TF32 off): full prefills with ragged true_len and appends
+               whose p0 is no multiple of the key tile, MHA/GQA/MQA, d_head
+               64 and 128, window x softcap; then timed at the dense route's
+               shapes (a full prefill S = T = 1024; a 256-token append at p0
+               1024 against 2048 slots);
+6. K5       — flash decode kernel vs its plain version the same way at
+               B = 1 and B = 8 against 2048 slots (ragged valid lengths);
+               then timed at B = 1 and B = 8 over 1250 valid slots;
+7. main     — TorchLLMService at the full width of the paper's
                Qwen1.5-0.5B (random weights from a seed) serves 3 sessions
-               x 3 turns of tokenized context; turns 2-3 must be session
-               hits that prefill only the suffix, both kernels must have
-               launched; then one turn is teacher-forced through the kernel
-               path and the plain path (same weights) and the per-step
-               logits must agree;
-6. profile  — host-clock and torch.profiler times of 8 decode steps and
+               x 3 turns of tokenized context on the paged route; turns 2-3
+               must be session hits that prefill only the suffix, both
+               kernels must have launched; then one turn is teacher-forced
+               through the kernel path and the plain path (same weights)
+               and the per-step logits must agree;
+8. profile  — host-clock and torch.profiler times of 8 decode steps and
                one 256-token prefill chunk (device busy and idle share,
                top kernels); diagnostic, after the counted run;
-7. K2       — the shared-prefix kernel vs its plain version on (acc, m, l)
+9. dense    — the dense route on the same weights: a page_size=0 service
+               serves the same 3 sessions x 3 turns (turns 2-3 suffix-only
+               hits), a kv_reuse=False service serves the same turns
+               prefilling each whole, a paged service too small for one
+               session falls back to the dense route once
+               (paged_fallbacks), and the full-width BatchedLLMService (8
+               slots) serves a wave of 16 tenants and 8 second turns
+               (session hits); K4 and K5 must launch on every path; one
+               turn is teacher-forced through the kernel and plain paths;
+               a dense decode step and a 256-token append are profiled;
+10. K2      — the shared-prefix kernel vs its plain version on (acc, m, l)
                at the batched server's shapes (B = 8 lanes, 64-page run,
                queries inside and past the run) and a GQA shape with
                window x softcap; the cascade (K2, then K1 in continuation
                mode) vs the plain single pass; then K2, K1's continuation
                and the single-pass K1 timed at the batched shape;
-8. batched  — BatchedLLMService at full paper width, 8 slots: 16 tenants
-               sharing a 1024-token system prompt arrive as one wave, then
-               8 of them take a second turn; K1, K2 and K3 must all launch,
-               the prompt must be shared (>= 15 shared hits, fewer physical
-               pages than without sharing) and every second turn must be a
-               suffix-only session hit; prints tokens/s, ms per B = 8
-               decode step, ttft and pages, and profiles 4 decode steps;
-9. batched_equivalence — one cascade decode step on clones of the server's
+11. batched — BatchedLLMService at full paper width, 8 slots, paged: 16
+               tenants sharing a 1024-token system prompt arrive as one
+               wave, then 8 of them take a second turn; K1, K2 and K3 must
+               all launch, the prompt must be shared (>= 15 shared hits,
+               fewer physical pages than without sharing) and every second
+               turn must be a suffix-only session hit; prints tokens/s, ms
+               per B = 8 decode step, ttft and pages, and profiles 4
+               decode steps;
+12. batched_equivalence — one cascade decode step on clones of the server's
                pools and kv_pos: logits with the cascade vs the single-pass
                kernels vs the plain path;
-10. migration — export a session's pages from one TorchLLMService,
+13. migration — export a session's pages from one TorchLLMService,
                install them into a second (bit-exact round trip, next turn
                a "pages" warm start prefilling only its suffix), and prime
                a third from token ids (a "tokens" warm start);
-11. result  — a JSON line with every kernel's numbers, the card's name and
-               power limit, and last ``{"ok": true, "device": {...}}``.
+14. result  — JSON lines with every kernel's numbers (K1-K5), the card's
+               name and power limit, and last ``{"ok": true, "device":
+               {...}}``.
 
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -83,6 +104,9 @@ CASCADE_TOL = 0.15   # cascade vs single pass: the same kernels, but the f32
                      # then propagates through the rest, as kernel vs plain
 PLAIN_TOL = 0.15     # cascade vs the plain path: LOGIT_TOL, the bound for
                      # kernel vs plain logits over 24 layers
+K45_TOL = 2e-2       # K4/K5 in bf16: as K1_TOL
+K45_F32_TOL = 1e-4   # K4/K5 in f32 (TF32 off): the same f32 products summed
+                     # in another order over up to 2048 keys
 
 
 def log(msg: str) -> None:
@@ -438,6 +462,163 @@ def phase_k2(dev, n_layers: int) -> dict:
         "k1_single_pass_kv_bytes": single_bytes,
         "cascade_kv_bytes": run_bytes + suffix_bytes,
     }
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: flash attention and flash decode on linear caches (dense route)
+# ---------------------------------------------------------------------------
+
+def _linear_case(gen, p0s, lens, S, T, H, KV, Dh, dtype, dev):
+    """Queries at p0 + [0, S) against a T-slot cache whose slot t holds
+    position t, valid below p0 + len (the dense route's layout)."""
+    import torch
+
+    B = len(p0s)
+    q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    p0 = torch.tensor(p0s, dtype=torch.int32, device=dev)[:, None]
+    q_pos = (p0 + torch.arange(S, dtype=torch.int32, device=dev)[None, :]).contiguous()
+    slot = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+    valid = (slot < p0 + torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]).contiguous()
+    kv_pos = torch.where(valid, slot, torch.full_like(slot, -1)).contiguous()
+    return q, k, v, q_pos, kv_pos, valid
+
+
+def _read_err(out, want, q_pos, kv_pos, valid, window) -> float:
+    """Max abs error over the rows with at least one unmasked key (a fully
+    masked row is the mean of V in the plain version, zeros in the kernel;
+    no caller reads one)."""
+    m = (kv_pos[:, None, :] <= q_pos[:, :, None]) & valid[:, None, :]
+    if window > 0:
+        m &= q_pos[:, :, None] - kv_pos[:, None, :] < window
+    rows = m.any(-1)
+    return (out[rows].float() - want[rows].float()).abs().max().item()
+
+
+def _check_linear(name, op, ref, cases, gen, dev) -> float:
+    import torch
+
+    err = 0.0
+    for label, p0s, lens, S, T, H, KV, Dh, window, cap in cases:
+        for dtype, tol in ((torch.bfloat16, K45_TOL), (torch.float32, K45_F32_TOL)):
+            args = _linear_case(gen, p0s, lens, S, T, H, KV, Dh, dtype, dev)
+            out = op(*args, window=window, softcap=cap)
+            want = ref(*args, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), (name, label)
+            e = _read_err(out, want, args[3], args[4], args[5], window)
+            log(f"{name} {label} {str(dtype)[6:]}: max_abs_err {e:.3e} over read rows "
+                f"(bound {tol})")
+            assert e <= tol, f"{name} {label} {dtype}: {e} > {tol}"
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+    return err
+
+
+def phase_k4(dev, n_layers: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # (label, p0s, lens, S, T, H, KV, Dh, window, softcap): full prefills
+    # with ragged true_len (S = T), and appends whose p0 is no multiple of
+    # the 64-key tile
+    cases = [
+        ("prefill mha ragged", (0, 0, 0), (1024, 700, 1), 1024, 1024, 16, 16, 64, 0, 0.0),
+        ("prefill gqa d128 window x softcap", (0, 0), (333, 200), 333, 333, 16, 4, 128, 100, 30.0),
+        ("append mha p0 1024", (1024,), (256,), 256, 2048, 16, 16, 64, 0, 0.0),
+        ("append mqa p0 1000", (1000, 37), (256, 100), 256, 2048, 16, 1, 64, 0, 0.0),
+        ("append gqa d128 window x softcap", (517,), (200,), 256, 2048, 8, 2, 128, 300, 50.0),
+    ]
+    err = _check_linear("K4", ops.flash_attention, ref.flash_attention_ref, cases, gen, dev)
+
+    H, KV, Dh = 16, 16, 64
+    out = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:105", "max_abs_err": err}
+    # the main path's two shapes: a full prefill S = T = 1024 (bucket 64 of
+    # a ~1k-token first turn), and a session hit's 256-token append chunk at
+    # p0 1024 against the 2048-slot cache
+    for shape, p0, S, T in (("prefill", 0, 1024, 1024), ("append", 1024, 256, 2048)):
+        sets = [_linear_case(gen, (p0,), (S,), S, T, H, KV, Dh, torch.bfloat16, dev)
+                for _ in range(n_layers)]
+        i32 = [(q, k, v, qp, kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
+        kernel_ms = device_time_ms([lambda a=a: flash_attention_cuda(*a) for a in i32])
+        plain_ms = device_time_ms([lambda a=a: ref.flash_attention_ref(*a) for a in sets])
+        n_kv = p0 + S
+        rows = torch.arange(S, device=dev)[:, None] + p0
+        mask = torch.arange(n_kv, device=dev)[None, :] <= rows           # causal (S, n_kv)
+        lib = [(q.transpose(1, 2).contiguous(), k[:, :n_kv].transpose(1, 2).contiguous(),
+                v[:, :n_kv].transpose(1, 2).contiguous()) for q, k, v, *_ in sets]
+        library_ms = device_time_ms(
+            [lambda a=a: F.scaled_dot_product_attention(*a, attn_mask=mask) for a in lib])
+        visible = S * p0 + S * (S + 1) // 2                             # causal (row, key) pairs
+        nbytes = 2 * n_kv * KV * Dh * 2 + 2 * S * H * Dh * 2 + 4 * (S + 2 * T)
+        bound_ms, bound_by = _bound(nbytes, 4 * H * Dh * visible)
+        log(f"K4 {shape} shape (B=1, S {S}, p0 {p0}, T {T}, MHA {H} x {Dh}): kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
+            f"{bound_ms:.6f} ({bound_by})")
+        if shape == "prefill":
+            out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        else:
+            out.update(append_ms=kernel_ms, append_plain_ms=plain_ms,
+                       append_library_ms=library_ms, append_bound_ms=bound_ms,
+                       append_bound_by=bound_by)
+    return out
+
+
+def phase_k5(dev, n_layers: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    T = 2048
+    lens8 = (1, 128, 700, 1250, 1251, 1300, 1900, 2048)
+    cases = [
+        ("B=1 mha", (1249,), (1,), 1, T, 16, 16, 64, 0, 0.0),
+        ("B=8 mha ragged", tuple(n - 1 for n in lens8), (1,) * 8, 1, T, 16, 16, 64, 0, 0.0),
+        ("B=8 gqa d128 window x softcap", tuple(n - 1 for n in lens8), (1,) * 8, 1, T,
+         16, 4, 128, 300, 30.0),
+        ("B=8 mqa", tuple(n - 1 for n in lens8), (1,) * 8, 1, T, 16, 1, 64, 0, 0.0),
+    ]
+    err = _check_linear("K5", ops.decode_attention, ref.decode_attention_ref, cases, gen, dev)
+
+    H, KV, Dh, n_valid = 16, 16, 64, 1250
+    out = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention/kernel.py:96", "max_abs_err": err}
+    # the main path's shapes: one decode query per lane against the
+    # 2048-slot cache holding ~1.25k tokens, B = 1 (engine) and 8 (server)
+    for B in (1, 8):
+        sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
+                             torch.bfloat16, dev) for _ in range(n_layers)]
+        prep = [(q.reshape(B, KV, H // KV, Dh).contiguous(), k, v, qp.reshape(B).contiguous(),
+                 kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
+        kernel_ms = device_time_ms([lambda a=a: decode_attention_cuda(*a) for a in prep])
+        plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a) for a in sets])
+        lib = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), va[:, None, None, :]) for q, k, v, _, _, va in sets]
+        library_ms = device_time_ms(
+            [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
+             for a in lib])
+        nbytes = B * (2 * n_valid * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (1 + 2 * T))
+        bound_ms, bound_by = _bound(nbytes, B * 4 * H * Dh * n_valid)
+        log(f"K5 B={B} (T {T}, {n_valid} valid slots, MHA {H} x {Dh}): kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
+            f"{bound_ms:.6f} ({bound_by}, {nbytes} B)")
+        if B == 1:
+            out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        else:
+            out.update(b8_ms=kernel_ms, b8_plain_ms=plain_ms, b8_library_ms=library_ms,
+                       b8_bound_ms=bound_ms, b8_bound_by=bound_by)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -908,6 +1089,289 @@ def phase_profile(svc, last_turn, dev) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Dense route: page_size=0 pools, keyless and kv_reuse=False turns, the
+# page-exhaustion fallback and the full-width batched server
+# ---------------------------------------------------------------------------
+
+def _dense_counters():
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    return {"flash_attention": flash_ops.flash_attention,
+            "decode_attention": decode_ops.decode_attention}
+
+
+def _counted(fn):
+    """Run ``fn`` with K4's and K5's launch counters set to 0 just before;
+    returns (its result, the counts just after)."""
+    import torch
+
+    counters = _dense_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    assert all(v > 0 for v in launches.values()), launches
+    return out, launches
+
+
+def dense_teacher_forced(cfg, params, ids, forced, dev, split=None):
+    """Full prefill of ``ids`` into a 2048-slot cache (bucket 64), then
+    ``forced`` tokens decoded one by one; every step's logits, f32. With
+    ``split``, a session hit's turn: only ``ids[:split]`` is prefilled whole
+    and the rest is appended in the engine's 256-token chunks."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.serving import chunked_append
+
+    if split is None:
+        logits, caches, pos = _dense_prefilled(cfg, params, ids, dev)
+    else:
+        _, caches, _ = _dense_prefilled(cfg, params, ids[:split], dev)
+        logits, caches, pos = chunked_append(params, cfg, caches, ids[split:], split, 256, 64)
+    out = [logits[0]]
+    for t in forced:
+        lg, caches = decode_step(params, cfg, caches,
+                                 torch.tensor([[t]], dtype=torch.int32, device=dev), pos)
+        pos = pos + 1
+        out.append(lg[0, 0])
+    return torch.stack(out).float()
+
+
+def phase_dense(params, dev) -> tuple:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.models import decode_step, prefill_append
+    from repro_torch.serving import BatchedLLMService, TorchLLMService
+    from repro_torch.tokenizer import assistant_header, encode_turn
+
+    cfg = PAPER_QWEN15_0_5B.replace(attn_impl="cuda")
+    mk = lambda **kw: TorchLLMService.create(  # noqa: E731
+        "paper-qwen1.5-0.5b", cfg, max_len=2048, device=dev, params=params, **kw)
+    keyed, keyless = mk(), mk(kv_reuse=False)
+    assert keyed.engine.session_pool.allocator is None     # page_size=0: a dense pool
+    assert keyless.engine.session_pool is None
+    tok = keyed.tokenizer
+    rng = np.random.default_rng(0)
+
+    def prompt(turn: int, n_doc: int):
+        ids = encode_turn(tok, "user", f"turn {turn}: explain the attached sensor log")
+        doc = rng.integers(300, cfg.vocab_size, size=n_doc).tolist()
+        return ids[:-2] + doc + ids[-2:] + assistant_header(tok)
+
+    # warm-up (cuBLAS handles at the dense shapes), not part of the counted runs
+    for svc in (keyed, keyless):
+        svc.completion(rng.integers(300, 5000, size=64).tolist(), prompt(0, 16), 4,
+                       cache_key="warmup")
+    torch.cuda.synchronize()
+
+    # keyed: the main phase's 3 sessions x 3 turns on a dense pool
+    sessions = {f"s{i}": rng.integers(300, cfg.vocab_size, size=200 + 200 * i).tolist()
+                for i in range(3)}
+    inputs, turns = [], []
+
+    def serve_keyed():
+        for turn in range(3):
+            for key, ctx in sessions.items():
+                p = prompt(turn + 1, 300)
+                r = keyed.completion(ctx, p, 32, cache_key=key)
+                if turn > 0:
+                    assert r.cache_hit and r.reused_tokens == len(ctx), (key, turn, r.reused_tokens)
+                    assert r.prefill_tokens == len(p), (key, turn, r.prefill_tokens)
+                inputs.append((ctx, p))
+                turns.append({"turn": turn + 1, "n_in": len(ctx) + len(p), "ttft_ms": r.ttft_ms,
+                              "decode_p50_ms": r.decode_p50_ms})
+                log(f"dense: {key} turn {turn + 1}: input {len(ctx) + len(p)} reused "
+                    f"{r.reused_tokens} prefilled {r.prefill_tokens} ttft_ms {r.ttft_ms:.3f} "
+                    f"decode_p50_ms/token {r.decode_p50_ms:.3f}")
+                sessions[key] = ctx + p + r.token_ids
+
+    _, l_keyed = _counted(serve_keyed)
+    log(f"dense: keyed path kernel launches {l_keyed}")
+
+    # kv_reuse=False: the same turns, every context prefilled whole
+    keyless_ttft = []
+
+    def serve_keyless():
+        for ctx, p in inputs:
+            r = keyless.completion(ctx, p, 32, cache_key="ignored")
+            assert not r.cache_hit and r.prefill_tokens == len(ctx) + len(p), r.prefill_tokens
+            keyless_ttft.append(r.ttft_ms)
+
+    _, l_keyless = _counted(serve_keyless)
+    log(f"dense: kv_reuse=False path: 9 turns prefilled whole (inputs "
+        f"{min(len(c) + len(p) for c, p in inputs)}-{max(len(c) + len(p) for c, p in inputs)}), "
+        f"ttft_ms p50 {float(np.percentile(keyless_ttft, 50)):.3f}; kernel launches {l_keyless}")
+    del keyless
+
+    # a paged engine whose 31 pages (496 tokens) cannot hold one session:
+    # the keyed turn leaves the paged route once and is served dense
+    small = mk(page_size=PS, kv_pages=32)
+    ctx, p = inputs[4]
+    r_fb, l_fallback = _counted(lambda: small.completion(ctx, p, 32, cache_key="big"))
+    eng = small.engine
+    assert eng.paged_fallbacks == 1 and len(r_fb.token_ids) > 0, eng.paged_fallbacks
+    log(f"dense: page-exhaustion fallback: {len(ctx) + len(p)}-token turn on "
+        f"{eng.session_pool.allocator.n_pages - 1} pages -> paged_fallbacks "
+        f"{eng.paged_fallbacks}, pool {json.dumps(eng.session_pool.stats())}; kernel launches "
+        f"{l_fallback}")
+    del small, eng
+
+    # teacher-forced: s1's last turn through the kernel path and the plain
+    # path, once prefilled whole (K4 at S = T) and once as the served hit
+    # (its context prefilled, its prompt appended in chunks: K4 at S <= 256
+    # against the 2048-slot cache), then 32 decode steps (K5)
+    hist = sessions["s1"]
+    ctx, p = inputs[7]                          # s1's turn 3: its context, then its prompt
+    ids, forced, split = ctx + p, hist[len(ctx) + len(p):], len(ctx)
+    assert hist[: len(ids)] == ids and forced
+    diff, agree = 0.0, 1.0
+    for label, sp in (("whole prefill", None), ("hit append", split)):
+        kern = dense_teacher_forced(cfg, params, ids, forced, dev, sp)
+        plain = dense_teacher_forced(cfg.replace(attn_impl="reference"), params, ids, forced,
+                                     dev, sp)
+        torch.cuda.synchronize()
+        assert kern.shape == plain.shape == (len(forced) + 1, cfg.vocab_size)
+        assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+        d = (kern - plain).abs().max().item()
+        a = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        log(f"dense equivalence ({label}): teacher-forced turn of {len(ids)} + {len(forced)} "
+            f"tokens"
+            f"{'' if sp is None else f' (appended from {sp})'}: max |logit diff| kernel vs "
+            f"plain {d:.4e} (bound {LOGIT_TOL}), argmax agreement {a:.3f}")
+        assert d <= LOGIT_TOL, f"dense logits ({label}) differ by {d} > {LOGIT_TOL}"
+        diff, agree = max(diff, d), min(agree, a)
+
+    # profile: one dense decode step at ~1.25k tokens, one 256-token append
+    n = 1248
+    base_ids = hist[:n]
+    _, caches, pos = _dense_prefilled(cfg, params, base_ids, dev)
+    steps = forced[:8]
+
+    # a rerun rewrites the same slots with the same values, so each run
+    # works on the same caches (no copy in the traced window)
+    def decode8():
+        q = pos
+        for t in steps:
+            decode_step(params, cfg, caches, torch.tensor([[t]], dtype=torch.int32, device=dev), q)
+            q = q + 1
+
+    p0 = n - 256
+    app_toks = torch.tensor([base_ids[p0:]], dtype=torch.int32, device=dev)
+    trimmed = _dense_prefilled(cfg, params, base_ids[:p0], dev)[1]
+
+    def append256():
+        prefill_append(params, cfg, trimmed, app_toks, p0)
+
+    report = {}
+    for name, fn, per in (("dense_decode_step", decode8, len(steps)),
+                          ("dense_append_256", append256, 1)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / per
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3 / per
+        busy, rows = _device_ms(prof)
+        busy /= per
+        entry = {"wall_ms": wall, "traced_wall_ms": traced,
+                 "device_busy_ms": busy if busy > 0 else "not measured",
+                 "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
+                 "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]]}
+        report[name] = entry
+        log(f"profile {name}: {json.dumps(entry)}")
+    del caches, trimmed
+    torch.cuda.empty_cache()
+
+    # the full-width batched server: a wave of 16 tenants, then 8 second turns
+    bsvc = BatchedLLMService.create(
+        "paper-qwen1.5-0.5b", cfg, n_slots=N_SLOTS, max_len=2048, paged=False,
+        session_cache_capacity=N_TENANTS, device=dev, params=params,
+    )
+    server = bsvc.server
+    assert not server.paged
+    brng = np.random.default_rng(12)
+    system = brng.integers(300, cfg.vocab_size, size=SYSTEM_TOKENS).tolist()
+    questions = [brng.integers(300, cfg.vocab_size, size=int(brng.integers(24, 73))).tolist()
+                 for _ in range(N_TENANTS)]
+    server.submit(brng.integers(300, 5000, size=40).tolist(), max_new=4)
+    server.submit(brng.integers(300, 5000, size=40).tolist(), max_new=4)
+    server.run_to_completion()
+    server.finished.clear()
+
+    def serve_batched():
+        rids = [server.submit(system + qs, max_new=MAX_NEW_BATCHED, cache_key=f"tenant{i}")
+                for i, qs in enumerate(questions)]
+        t_wave = time.perf_counter()
+        steps1 = _drive(server)
+        wave_s = time.perf_counter() - t_wave
+        fin = {f.request_id: f for f in server.finished}
+        server.finished.clear()
+        first = [fin[r] for r in rids]
+        keys = list(range(0, N_TENANTS, 2))
+        hist_b = {i: system + questions[i] + first[i].token_ids for i in keys}
+        follow = {i: brng.integers(300, cfg.vocab_size, size=int(brng.integers(16, 41))).tolist()
+                  for i in keys}
+        rids2 = {i: server.submit(hist_b[i] + follow[i], max_new=MAX_NEW_BATCHED,
+                                  cache_key=f"tenant{i}") for i in keys}
+        steps2 = _drive(server)
+        fin = {f.request_id: f for f in server.finished}
+        server.finished.clear()
+        for i in keys:
+            f = fin[rids2[i]]
+            assert f.cache_hit and f.reused_tokens == len(hist_b[i]), (i, f.reused_tokens)
+        return first, wave_s, steps1 + steps2
+
+    (first, wave_s, bsteps), l_batched = _counted(serve_batched)
+    gen_tokens = sum(len(f.token_ids) for f in first)
+    pure8 = [ms for ready, ms, pure in bsteps if pure and ready == N_SLOTS]
+    ttfts = [f.ttft_ms for f in first]
+    log(f"dense: full-width server wave of {N_TENANTS} tenants: {gen_tokens} tokens in "
+        f"{wave_s:.3f} s; 8 second turns all session hits; kernel launches {l_batched}")
+    hits = [t for t in turns if t["turn"] > 1]
+    summary = {
+        "ttft_ms_p50_hit_turns": float(np.percentile([t["ttft_ms"] for t in hits], 50)),
+        "ttft_ms_p50_first_turns": float(np.percentile(
+            [t["ttft_ms"] for t in turns if t["turn"] == 1], 50)),
+        "ttft_ms_p50_keyless": float(np.percentile(keyless_ttft, 50)),
+        "decode_ms_per_token_p50": float(np.percentile([t["decode_p50_ms"] for t in turns], 50)),
+        "batched_decode_ms_per_step_b8_p50": float(np.percentile(pure8, 50)),
+        "batched_decode_steps_b8": len(pure8),
+        "batched_decode_tokens_per_s_b8": N_SLOTS * 1e3 / float(np.percentile(pure8, 50)),
+        "batched_wave_tokens_per_s": gen_tokens / wave_s,
+        "batched_ttft_ms_p50": float(np.percentile(ttfts, 50)),
+        "batched_ttft_ms_p90": float(np.percentile(ttfts, 90)),
+        "max_logit_diff": diff, "argmax_agreement": agree, "paged_fallbacks": 1,
+        "launches": {"keyed": l_keyed, "keyless": l_keyless, "fallback": l_fallback,
+                     "batched": l_batched},
+        "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms", "device_idle_share")}
+                    for k, v in report.items()},
+    }
+    log(f"dense: summary {json.dumps(summary)}")
+    del bsvc, server
+    torch.cuda.empty_cache()
+    total = {k: sum(l[k] for l in (l_keyed, l_keyless, l_fallback, l_batched))
+             for k in l_keyed}
+    return summary, total
+
+
+def _dense_prefilled(cfg, params, ids, dev):
+    """Full prefill of ``ids`` into a fresh 2048-slot cache (bucket 64, as
+    the engine's)."""
+    from repro_torch.serving import bucketed_prefill
+
+    return bucketed_prefill(params, cfg, ids, 2048, 64, dev)
+
+
 def phase_equivalence(svc, last_turn, dev) -> float:
     import torch
 
@@ -959,9 +1423,14 @@ def main() -> int:
     n_layers = 24
     k1 = phase_k1(dev, n_layers)
     k3 = phase_k3(dev, n_layers)
+    k4 = phase_k4(dev, n_layers)
+    k5 = phase_k5(dev, n_layers)
     svc, last_turn, launches, summary = phase_main(dev)
     diff = phase_equivalence(svc, last_turn, dev)
     phase_profile(svc, last_turn, dev)
+    dsummary, dlaunches = phase_dense(svc.engine.params, dev)
+    k4["launches"] = dlaunches["flash_attention"]
+    k5["launches"] = dlaunches["decode_attention"]
     del svc, last_turn
     torch.cuda.empty_cache()
     k2 = phase_k2(dev, n_layers)
@@ -982,7 +1451,10 @@ def main() -> int:
                                         launches_single_stream=launches)}))
     print(json.dumps({"batched_path": dict(bsummary, **beq, k2_extra={
         k: v for k, v in k2.items() if k not in keys}), "migration": migration}))
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3)]}))
+    print(json.dumps({"dense_path": dsummary, "k4_extra": {
+        k: v for k, v in k4.items() if k not in keys}, "k5_extra": {
+        k: v for k, v in k5.items() if k not in keys}}))
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

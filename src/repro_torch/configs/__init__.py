@@ -1,5 +1,5 @@
 """Architecture registry of the port. It names only the configurations the
-port serves so far: the paper's own model (the paged dense route)."""
+port serves so far: the paper's own model (its paged and dense routes)."""
 
 from __future__ import annotations
 

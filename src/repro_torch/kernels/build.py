@@ -129,6 +129,10 @@ def load_library() -> ctypes.CDLL:
                 [vp] * 8 + [i] * 8 + [f, f, i, vp]
             )
             lib.repro_shared_prefix.restype = i
+            lib.repro_flash_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
+            lib.repro_flash_attention.restype = i
+            lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 6 + [f, f, i, vp]
+            lib.repro_decode_attention.restype = i
             _lib = lib
     return _lib
 

@@ -1,14 +1,26 @@
 from .config import ModelConfig
-from .prefill import prefill_chunk_paged, supports_append
-from .transformer import decode_step_paged, init_params, layer_groups
+from .prefill import prefill, prefill_append, prefill_chunk_paged, supports_append
+from .transformer import (
+    decode_step,
+    decode_step_paged,
+    forward_full,
+    init_params,
+    layer_groups,
+    make_decode_caches,
+)
 from .weights import params_from_numpy
 
 __all__ = [
     "ModelConfig",
+    "decode_step",
     "decode_step_paged",
+    "forward_full",
     "init_params",
     "layer_groups",
+    "make_decode_caches",
     "params_from_numpy",
+    "prefill",
+    "prefill_append",
     "prefill_chunk_paged",
     "supports_append",
 ]

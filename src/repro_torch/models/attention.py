@@ -1,17 +1,21 @@
-"""Attention for the paged serving route — the PyTorch counterpart of
-``repro.models.attention``.
+"""Attention — the PyTorch counterpart of ``repro.models.attention``: the
+dense route (full-sequence prefill, chunk append and decode against a
+full-width cache) and the paged route (decode and prefill chunks through a
+page table).
 
 Two execution paths, chosen by ``cfg.attn_impl``:
 
-- ``"reference"`` — plain PyTorch: gather the lane's pages into the linear
-  slot == position view and run the position-masked SDPA in f32.
-- anything else — the hand-written Hopper kernels
-  (``repro_torch.kernels.paged_attention`` for decode,
-  ``repro_torch.kernels.chunked_prefill`` for prefill chunks), which attend
-  through the page table. On a CPU tensor those wrappers run their plain
-  versions, so the CPU tests reach this branch too.
+- ``"reference"`` — plain PyTorch: the position-masked SDPA in f32 (the
+  paged route gathers the lane's pages into the linear slot == position
+  view first).
+- anything else — the hand-written Hopper kernels:
+  ``repro_torch.kernels.flash_attention`` (K4) for prefill and appends,
+  ``decode_attention`` (K5) for dense decode, ``paged_attention`` (K1, K2)
+  for paged decode and ``chunked_prefill`` (K3) for paged prefill chunks.
+  On a CPU tensor those wrappers run their plain versions, so the CPU
+  tests reach this branch too.
 
-The paged pools are written in place (JAX returns new pools).
+Caches and pools are written in place (JAX returns new arrays).
 """
 
 from __future__ import annotations
@@ -90,6 +94,38 @@ def _sdpa_reference(
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
+def attention_forward(
+    p: Params,
+    x: torch.Tensor,                       # (B,S,D)
+    positions: torch.Tensor,               # (B,S)
+    cfg: ModelConfig,
+    window: int = 0,
+    seq_valid: Optional[torch.Tensor] = None,  # (B,S) bool
+    return_kv: bool = False,
+):
+    """Full-sequence self-attention (prefill; inference only). With
+    ``return_kv``, also returns the rotated K and V (for cache seeding).
+    The kernel path is ``kernels.flash_attention`` (K4)."""
+    q, k, v = qkv_project(p, x, positions, cfg)
+    b, s = positions.shape
+    valid = (
+        seq_valid if seq_valid is not None
+        else torch.ones((b, s), dtype=torch.bool, device=x.device)
+    )
+    if cfg.attn_impl != "reference":
+        from ..kernels.flash_attention import ops as flash_ops
+
+        out = flash_ops.flash_attention(
+            q, k, v, positions, positions, valid, window=window, softcap=cfg.attn_softcap,
+        )
+    else:
+        out = _sdpa_reference(q, k, v, positions, positions, valid, cfg, window)
+    out = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
+    if return_kv:
+        return out, k, v
+    return out
+
+
 def _project_q_step(
     p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 ) -> torch.Tensor:
@@ -126,17 +162,20 @@ def attention_decode(
     cfg: ModelConfig,
     window: int = 0,
 ) -> torch.Tensor:
-    """Single-step decode against a linear cache — the reference branch.
-    The JAX package's kernel branch (``decode_attention_pallas``) serves the
-    dense route and is not ported yet (ROADMAP, Queue 2 K5)."""
-    if cfg.attn_impl != "reference":
-        raise NotImplementedError(
-            "attention_decode's kernel branch (decode_attention_pallas) is the "
-            "dense route, not ported yet (ROADMAP, Queue 2 K5)"
-        )
+    """Single-step decode against a linear cache (full; ``kv_pos`` gives
+    each slot's position). The kernel path is ``kernels.decode_attention``
+    (K5)."""
     b = x.shape[0]
     q = _project_q_step(p, x, positions, cfg)
-    out = _sdpa_reference(q, k_cache, v_cache, positions, kv_pos, kv_valid, cfg, window)
+    if cfg.attn_impl != "reference":
+        from ..kernels.decode_attention import ops as decode_ops
+
+        out = decode_ops.decode_attention(
+            q, k_cache, v_cache, positions, kv_pos, kv_valid,
+            window=window, softcap=cfg.attn_softcap,
+        )
+    else:
+        out = _sdpa_reference(q, k_cache, v_cache, positions, kv_pos, kv_valid, cfg, window)
     return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
@@ -176,6 +215,42 @@ def attention_decode_paged(
     ck = lin_k if lin_k is not None else gather_pages(pool_k, page_table)
     cv = lin_v if lin_v is not None else gather_pages(pool_v, page_table)
     return attention_decode(p, x, positions, ck, cv, kv_pos, kv_pos >= 0, cfg, window=window)
+
+
+def attention_append(
+    p: Params,
+    x: torch.Tensor,           # (B,S,D) — a chunk of new tokens
+    positions: torch.Tensor,   # (B,S) absolute positions, p0 + arange(S)
+    p0: int,                   # the chunk's first position, on the host
+    k_cache: torch.Tensor,     # (B,T,KV,Dh) full cache (slot == position)
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,      # (B,T) — already updated for this chunk
+    cfg: ModelConfig,
+    window: int = 0,
+) -> torch.Tensor:
+    """Multi-token decode: S new tokens mid-sequence attend against a full
+    cache holding the prior prefix. The chunk's rotated K/V are written
+    into the cache at their absolute positions (in place, slots past the
+    cache dropped) *before* attention, so intra-chunk causality falls out
+    of the position mask. The kernel path is ``kernels.flash_attention``
+    (K4). Returns the attention output (B,S,D)."""
+    from .cache import write_chunk
+
+    b, s, _ = x.shape
+    q, k, v = qkv_project(p, x, positions, cfg)
+    write_chunk(k_cache, k, p0)
+    write_chunk(v_cache, v, p0)
+    kv_valid = kv_pos >= 0
+    if cfg.attn_impl != "reference":
+        from ..kernels.flash_attention import ops as flash_ops
+
+        out = flash_ops.flash_attention(
+            q, k_cache, v_cache, positions, kv_pos, kv_valid,
+            window=window, softcap=cfg.attn_softcap,
+        )
+    else:
+        out = _sdpa_reference(q, k_cache, v_cache, positions, kv_pos, kv_valid, cfg, window)
+    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
 def attention_chunk_paged(

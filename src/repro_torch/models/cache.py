@@ -1,5 +1,12 @@
-"""Paged KV cache structures for serving — the PyTorch counterpart of the
-paged half of ``repro.models.cache``.
+"""KV cache structures for serving — the PyTorch counterpart of
+``repro.models.cache`` for full-cache attention groups.
+
+Two kinds:
+
+- the full cache ``{"k", "v": (L, B, T, KV, Dh), "kv_pos": (B, T)}`` of the
+  dense route, one per layer group, stacked over the group's layers, with
+  slot index == absolute position (``kv_pos`` -1 = empty);
+- the paged pool of the paged route.
 
 A paged pool replaces the per-sequence full-width (B, T, KV, Dh) cache with
 one shared physical pool of fixed-size pages, ``(L, P, page_size, KV, Dh)``
@@ -8,22 +15,28 @@ reproduces the linear ``slot == absolute position`` layout, so attention
 stays position-masked. Page 0 is the scratch page: table padding points at
 it, and anything written there is garbage by design.
 
-Unlike the JAX package, whose pure functions return new pools, the writers
-here update the pool tensors **in place** (``paged_write_step``,
-``paged_write_chunk``) — the pools are the allocator's long-lived device
-buffers and copying them per token would cost a pool's worth of bytes.
+Unlike the JAX package, whose pure functions return new arrays, the
+writers here update caches and pools **in place** (``write_step``,
+``update_kv_pos``, ``append_kv_pos``, ``write_chunk``,
+``paged_write_step``, ``paged_write_chunk``) — copying a cache per token
+would cost a cache's worth of bytes. A caller that must keep a cache (a
+session pool entry) hands these a copy (``clone_caches``).
 
 JAX drops an out-of-range scatter (``mode="drop"``); on CUDA an
 out-of-range index is a device assert, and masking by boolean selection
-would synchronise with the host once per layer. So a write that JAX drops
-is redirected here to cell (0, 0) of the scratch page carrying that cell's
-current value: every such write stores the same bytes, the pool is left
-exactly as JAX leaves it, and nothing waits on the device.
+would synchronise with the host once per layer. A full cache's chunk
+starts at a position the host knows (every caller appends from a host
+offset), so its kept span is a slice and the dropped tail is never
+written. In a paged pool a write that JAX drops is redirected to cell
+(0, 0) of the scratch page carrying that cell's current value: the pool
+is left exactly as JAX leaves it, and nothing waits on the device. The
+dense writers that JAX clamps (``write_step``, ``update_kv_pos``) clamp
+here too.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,6 +45,119 @@ from .layers import dtype_of
 
 Cache = Dict[str, torch.Tensor]
 
+
+# ---------------------------------------------------------------------------
+# Full caches (the dense route)
+# ---------------------------------------------------------------------------
+
+def init_attn_cache(
+    cfg: ModelConfig, n_layers: int, batch: int, slots: int,
+    device: Optional[torch.device] = None,
+) -> Cache:
+    """Empty full cache of one layer group: k/v zeros (L, B, T, KV, Dh) in
+    the compute dtype, kv_pos -1."""
+    dt = dtype_of(cfg.compute_dtype)
+    shape = (n_layers, batch, slots, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "kv_pos": torch.full((batch, slots), -1, dtype=torch.int32, device=device),
+    }
+
+
+def clone_caches(caches: List[Cache]) -> List[Cache]:
+    """Fresh copies of a cache list, for compute that writes in place on a
+    cache someone else keeps (a session pool entry)."""
+    return [{name: t.clone() for name, t in c.items()} for c in caches]
+
+
+def write_step(
+    cache_k: torch.Tensor,   # (B, T, KV, Dh) one layer
+    cache_v: torch.Tensor,
+    k_new: torch.Tensor,     # (B, 1, KV, Dh)
+    v_new: torch.Tensor,
+    pos: torch.Tensor,       # (B,) absolute position of the new token
+) -> None:
+    """Write one decode token's K/V at slot ``min(pos, T - 1)``, in place —
+    JAX clamps here (full cache), it does not drop."""
+    b, t = cache_k.shape[0], cache_k.shape[1]
+    slot = torch.clamp(pos, max=t - 1).long()
+    bidx = torch.arange(b, device=cache_k.device)
+    cache_k[bidx, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v_new[:, 0].to(cache_v.dtype)
+
+
+def update_kv_pos(kv_pos: torch.Tensor, pos: torch.Tensor) -> None:
+    """kv_pos[b, min(pos[b], T - 1)] = pos[b], in place (clamped, as JAX)."""
+    b, t = kv_pos.shape
+    slot = torch.clamp(pos, max=t - 1).long()
+    kv_pos[torch.arange(b, device=kv_pos.device), slot] = pos.to(kv_pos.dtype)
+
+
+def _kept(p0: int, s: int, t: int) -> int:
+    """How many of a chunk's ``s`` slots from ``p0`` lie inside a
+    ``t``-slot cache; JAX drops the rest (``mode="drop"``)."""
+    return max(0, min(s, t - p0))
+
+
+def write_chunk(
+    cache: torch.Tensor,   # (B, T, KV, Dh) one layer of a full cache
+    new: torch.Tensor,     # (B, S, KV, Dh) a chunk's rotated K (or V)
+    p0: int,               # every lane's chunk starts at slot p0
+) -> None:
+    """``cache.at[b, p0 + arange(S)].set(new, mode="drop")``, in place:
+    slots past the cache are dropped."""
+    n = _kept(p0, new.shape[1], cache.shape[1])
+    cache[:, p0 : p0 + n] = new[:, :n].to(cache.dtype)
+
+
+def append_kv_pos(
+    kv_pos: torch.Tensor,  # (B, T) slot positions of a full cache
+    p0: int,               # every lane's chunk starts at position p0
+    valid: torch.Tensor,   # (B, S) bool — False for bucket padding
+) -> None:
+    """kv_pos after appending a chunk at ``p0`` into a full cache, in
+    place: padded chunk positions write -1 (kept invalid), slots past the
+    cache are dropped."""
+    n = _kept(p0, valid.shape[1], kv_pos.shape[1])
+    pos = torch.arange(p0, p0 + n, dtype=kv_pos.dtype, device=kv_pos.device)
+    kv_pos[:, p0 : p0 + n] = torch.where(valid[:, :n], pos, torch.full_like(pos, -1))
+
+
+def trim_kv_pos(kv_pos: torch.Tensor, n_valid) -> torch.Tensor:
+    """A new kv_pos with every slot at index >= n_valid invalid (full
+    cache: slot == position). ``n_valid`` is an int or a (B,) tensor."""
+    t = kv_pos.shape[1]
+    j = torch.arange(t, dtype=torch.int32, device=kv_pos.device)
+    n = torch.as_tensor(n_valid, dtype=torch.int32, device=kv_pos.device)
+    keep = j[None, :] < (n[:, None] if n.dim() == 1 else n)
+    return torch.where(keep, kv_pos, torch.full_like(kv_pos, -1))
+
+
+def trim_cache_prefix(caches: List[Cache], n_valid: int) -> List[Cache]:
+    """B = 1 full caches with kv_pos masked beyond ``n_valid`` — the one
+    trim every pool-storage path uses (serve write-back, prime, resend
+    reuse): slots past the kept prefix hold K/V of discarded or
+    not-yet-requested tokens. New dicts sharing the k/v tensors."""
+    return [
+        {"k": c["k"], "v": c["v"], "kv_pos": trim_kv_pos(c["kv_pos"], [n_valid])}
+        for c in caches
+    ]
+
+
+def prefill_kv_pos(
+    batch: int, slots: int, seq_len: int, device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """kv_pos after prefilling ``seq_len`` tokens into a full cache of
+    ``slots`` slots."""
+    j = torch.arange(slots, dtype=torch.int32, device=device)
+    pos = torch.where(j < seq_len, j, torch.full_like(j, -1))
+    return pos[None, :].expand(batch, slots).clone()
+
+
+# ---------------------------------------------------------------------------
+# Paged pools (the paged route)
+# ---------------------------------------------------------------------------
 
 def init_paged_pool(
     cfg: ModelConfig, n_layers: int, n_pages: int, page_size: int,

@@ -1,16 +1,20 @@
-"""Paged chunked prefill — prompt chunks land straight in KV pages (the
-PyTorch counterpart of ``repro.models.prefill.prefill_chunk_paged``)."""
+"""Prefill — the PyTorch counterpart of ``repro.models.prefill`` for the
+``"dense"`` layer group: the full prefill that seeds full caches
+(``prefill``), the chunk append into existing full caches
+(``prefill_append``, session-level KV reuse on the dense route), and the
+paged route's chunked prefill straight into KV pages
+(``prefill_chunk_paged``). Caches and pools are written in place."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .attention import attention_chunk_paged
-from .cache import Cache, gather_pages_stacked
+from .attention import attention_append, attention_chunk_paged, attention_forward
+from .cache import Cache, append_kv_pos, gather_pages_stacked, prefill_kv_pos, trim_kv_pos
 from .config import ModelConfig
-from .layers import dtype_of, embed_tokens, mlp_forward, rms_norm, unembed
+from .layers import Params, dtype_of, embed_tokens, mlp_forward, rms_norm, unembed
 from .transformer import layer_groups
 
 
@@ -22,6 +26,126 @@ def supports_append(cfg: ModelConfig) -> bool:
         return all(spec.kind == "dense" for spec in layer_groups(cfg))
     except NotImplementedError:
         return False
+
+
+def _dense_block_prefill(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    window: int, seq_valid: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    h, k, v = attention_forward(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
+        window=window, seq_valid=seq_valid, return_kv=True,
+    )
+    x = x + h
+    x = x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x, k, v
+
+
+def prefill(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                       # (B,S)
+    max_len: int,
+    true_len: Optional[torch.Tensor] = None,    # (B,) real lengths (bucketed input)
+) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
+    """Full prefill of positions 0..S-1 into fresh full caches of
+    ``max_len`` slots (``repro.models.prefill.prefill``): returns
+    (last-position logits (B,V), caches, next_pos (B,)). The prefill K/V
+    fill slots [0, S) and the rest stay zero. With ``true_len`` the input
+    is right-padded to a bucket length: padded positions are masked out of
+    attention, kv_pos is
+    valid below ``true_len`` only, and logits/next_pos refer to position
+    ``true_len - 1``. With the kernels, attention is K4."""
+    if not supports_append(cfg):
+        raise NotImplementedError(f"prefill requires full-cache dense groups ({cfg.name})")
+    b, s = tokens.shape
+    dev = tokens.device
+    if s > max_len:
+        raise ValueError(f"prefill of {s} tokens into {max_len} slots")
+    idx = torch.arange(s, dtype=torch.int32, device=dev)
+    seq_valid = idx[None, :] < true_len[:, None] if true_len is not None else None
+    positions = idx[None].expand(b, s)
+    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    caches: List[Cache] = []
+    for spec, gp in zip(layer_groups(cfg), params["groups"]):
+        w = cfg.window_for_layer(0)
+        ck = cv = None
+        for i, bp in enumerate(gp):
+            x, k, v = _dense_block_prefill(bp, x, positions, cfg, w, seq_valid)
+            if ck is None:
+                shape = (len(gp), b, max_len) + tuple(k.shape[2:])
+                ck = torch.zeros(shape, dtype=k.dtype, device=dev)
+                cv = torch.zeros(shape, dtype=v.dtype, device=dev)
+            ck[i, :, :s] = k
+            cv[i, :, :s] = v
+        kv_pos = prefill_kv_pos(b, max_len, s, dev)
+        if true_len is not None:
+            kv_pos = trim_kv_pos(kv_pos, true_len)
+        caches.append({"k": ck, "v": cv, "kv_pos": kv_pos})
+    bi = torch.arange(b, device=dev)
+    if true_len is not None:
+        last = x[bi, true_len.long() - 1][:, None, :]
+        return unembed(params["embed"], last, cfg)[:, 0], caches, true_len.to(torch.int32)
+    logits = unembed(params["embed"], x[:, -1:, :], cfg)
+    return logits[:, 0], caches, torch.full((b,), s, dtype=torch.int32, device=dev)
+
+
+def _dense_block_append(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, p0: int, ck: torch.Tensor,
+    cv: torch.Tensor, kv_pos: torch.Tensor, cfg: ModelConfig, window: int,
+) -> torch.Tensor:
+    h = attention_append(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, p0,
+        ck, cv, kv_pos, cfg, window=window,
+    )
+    x = x + h
+    return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def prefill_append(
+    params: Dict,
+    cfg: ModelConfig,
+    caches: List[Cache],
+    tokens: torch.Tensor,                       # (B,S) new-token chunk
+    p0: int,                                    # every lane's start offset
+    true_len: Optional[torch.Tensor] = None,    # (B,) real chunk lengths
+) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
+    """Prefill a token chunk starting at position ``p0`` into *existing*
+    full caches (``repro.models.prefill.prefill_append``, whose ``p0`` is
+    a (B,) array; here every caller appends one offset the host knows), in
+    place: K/V land in slots ``[p0, p0 + S)`` (slots past the cache dropped),
+    ``kv_pos`` is extended (padded rows write -1), and the chunk attends
+    against every prior valid slot — a returning session computes only its
+    new tokens. Returns (last-valid-position logits (B,V), caches,
+    next_pos (B,)). A caller that must keep the caches it passes (a pool
+    entry) passes a copy. With the kernels, attention is K4."""
+    if not supports_append(cfg):
+        raise NotImplementedError(
+            f"prefill_append requires full-cache dense groups ({cfg.name})"
+        )
+    b, s = tokens.shape
+    dev = tokens.device
+    idx = torch.arange(s, dtype=torch.int32, device=dev)
+    q_pos = (p0 + idx)[None, :].expand(b, s)                           # (B,S)
+    valid = (
+        idx[None, :] < true_len[:, None] if true_len is not None
+        else torch.ones((b, s), dtype=torch.bool, device=dev)
+    )
+    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
+        append_kv_pos(cache["kv_pos"], p0, valid)
+        w = cfg.window_for_layer(0)
+        for i, bp in enumerate(gp):
+            x = _dense_block_append(
+                bp, x, q_pos, p0, cache["k"][i], cache["v"][i], cache["kv_pos"], cfg, w,
+            )
+    n_new = (
+        true_len.to(torch.int32) if true_len is not None
+        else torch.full((b,), s, dtype=torch.int32, device=dev)
+    )
+    last = x[torch.arange(b, device=dev), n_new.long() - 1][:, None, :]
+    logits = unembed(params["embed"], last, cfg)
+    return logits[:, 0], caches, p0 + n_new
 
 
 def prefill_chunk_paged(

@@ -1,22 +1,39 @@
-"""Decoder assembly for the paged serving route — the PyTorch counterpart
-of ``repro.models.transformer`` for the ``"dense"`` layer group.
+"""Decoder assembly — the PyTorch counterpart of
+``repro.models.transformer`` for the ``"dense"`` layer group: the
+full-sequence forward (inference), the dense route's decode step against
+full caches, and the paged route's decode step against a page pool.
 
 Parameters are ``{"embed": {...}, "groups": [[layer dict, ...], ...]}``:
 one list of per-layer dicts per group (the JAX package stacks each group on
 a leading L axis and scans it; a Python loop over layers replaces
-``scan_or_unroll`` here). Pools and ``kv_pos`` are updated in place.
+``scan_or_unroll`` here). Caches, pools and ``kv_pos`` are updated in
+place; the caches keep JAX's stacked layout (L, B, T, KV, Dh).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import attention_decode_paged, init_attention, project_kv_step
-from .cache import Cache, gather_pages_stacked, paged_write_step, update_kv_pos_paged
+from .attention import (
+    attention_decode,
+    attention_decode_paged,
+    attention_forward,
+    init_attention,
+    project_kv_step,
+)
+from .cache import (
+    Cache,
+    gather_pages_stacked,
+    init_attn_cache,
+    paged_write_step,
+    update_kv_pos,
+    update_kv_pos_paged,
+    write_step,
+)
 from .config import ModelConfig
 from .layers import (
     Params,
@@ -78,6 +95,102 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
             [_init_dense_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
         )
     return params
+
+
+def _full_caches_only(cfg: ModelConfig) -> None:
+    if cfg.attn_variant != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: ring caches (attn_variant={cfg.attn_variant!r}) are not "
+            "ported (ROADMAP, Queue 1 item 8)"
+        )
+
+
+def _dense_block_full(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    window: int, seq_valid: Optional[torch.Tensor],
+) -> torch.Tensor:
+    h = attention_forward(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
+        window=window, seq_valid=seq_valid,
+    )
+    x = x + h
+    return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def forward_full(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                      # (B,S)
+    seq_valid: Optional[torch.Tensor] = None,  # (B,S) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward for inference (``repro.models.transformer.
+    forward_full``) at positions 0..S-1: returns (logits (B,S,V), aux loss
+    0 — dense groups carry none). With the kernels, attention is K4."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    for spec, gp in zip(layer_groups(cfg), params["groups"]):
+        w = cfg.window_for_layer(0)  # uniform groups share one window
+        for bp in gp:
+            x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
+    return unembed(params["embed"], x, cfg), torch.zeros((), dtype=torch.float32)
+
+
+def make_decode_caches(
+    cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None,
+) -> List[Cache]:
+    """Empty full caches matching ``layer_groups(cfg)``: ``max_len`` slots
+    per lane, on ``device`` (default ``"cuda"``)."""
+    _full_caches_only(cfg)
+    dev = resolve_device(device)
+    return [
+        init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev)
+        for spec in layer_groups(cfg)
+    ]
+
+
+def _dense_block_decode(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
+    cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
+    cfg: ModelConfig, window: int,
+) -> torch.Tensor:
+    """One decode layer against a full cache: write the token's K/V at its
+    (clamped) slot, attend, then the MLP. kv_pos is already updated."""
+    h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
+    write_step(cache_k, cache_v, k_new, v_new, positions[:, 0])
+    h = attention_decode(
+        bp["attn"], h_in, positions, cache_k, cache_v, kv_pos, kv_valid, cfg, window=window
+    )
+    x = x + h
+    return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def decode_step(
+    params: Dict,
+    cfg: ModelConfig,
+    caches: List[Cache],         # per group: {"k","v"} (L,B,T,KV,Dh), "kv_pos" (B,T)
+    tokens: torch.Tensor,        # (B, 1)
+    pos: torch.Tensor,           # (B,) absolute position of this token
+) -> Tuple[torch.Tensor, List[Cache]]:
+    """serve_step against full caches (``repro.models.transformer.
+    decode_step``): returns (logits (B, 1, V), caches). The token's K/V and
+    position land in ``caches`` in place, at slot ``min(pos, T - 1)`` (JAX
+    clamps: the full-width server decodes its empty lanes too); ``kv_pos``
+    is updated once per group, before the layer loop. With the kernels
+    each layer attends through K5."""
+    _full_caches_only(cfg)
+    positions = pos[:, None].to(torch.int32)
+    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
+        update_kv_pos(cache["kv_pos"], pos)
+        kv_valid = cache["kv_pos"] >= 0
+        for i, bp in enumerate(gp):
+            x = _dense_block_decode(
+                bp, x, positions, cache["k"][i], cache["v"][i], cache["kv_pos"], kv_valid,
+                cfg, 0,
+            )
+    return unembed(params["embed"], x, cfg), caches
 
 
 def _dense_block_decode_paged(

@@ -3,11 +3,12 @@ from .engine import (
     GenerateResult,
     InferenceEngine,
     NodeShipProfile,
-    PagePoolExhausted,
     PageShipment,
     ServiceCapabilities,
     ServiceResult,
     TorchLLMService,
+    bucketed_prefill,
+    chunked_append,
     prime_session_pool,
     truncate_for_cache,
 )
@@ -24,7 +25,6 @@ __all__ = [
     "GenerateResult",
     "InferenceEngine",
     "NodeShipProfile",
-    "PagePoolExhausted",
     "PageShipment",
     "PagedKVAllocator",
     "PagedPrefiller",
@@ -35,6 +35,8 @@ __all__ = [
     "SessionCachePool",
     "SlotState",
     "TorchLLMService",
+    "bucketed_prefill",
+    "chunked_append",
     "page_digests",
     "prime_fill_pages",
     "prime_session_pool",

@@ -1,14 +1,25 @@
-"""PyTorch inference engine — the LLM Service behind the Context Manager,
-on the paged route (the counterpart of ``repro.serving.engine``).
+"""PyTorch inference engine — the LLM Service behind the Context Manager
+(the counterpart of ``repro.serving.engine``).
 
 The completion entry point takes a pre-tokenized context plus prompt token
-ids (the paper's llama.cpp extension, §4.1). A keyed request
-(``cache_key``, the session's context key) runs fully paged: its
-``context_ids + prompt_ids`` are matched against the session pool and the
-cross-session content index, the uncovered suffix is chunk-prefilled
-straight into KV pages, decode runs through the page table, and the pages
-move into the pool entry afterwards. On a GPU both attention steps run the
-hand-written CUDA kernels (``repro_torch.kernels``).
+ids (the paper's llama.cpp extension, §4.1). Two routes, as in JAX:
+
+- **paged** (a session pool bound to a page allocator, ``page_size`` and
+  ``kv_pages`` > 0, and a ``cache_key``): the ``context_ids + prompt_ids``
+  are matched against the session pool and the cross-session content
+  index, the uncovered suffix is chunk-prefilled straight into KV pages
+  (K3), decode runs through the page table (K1), and the pages move into
+  the pool entry afterwards;
+- **dense** (the default ``page_size=0``, every keyless request, every
+  turn of a ``kv_reuse=False`` service, and a paged request the page pool
+  cannot take — counted in ``paged_fallbacks``): a full prefill (K4) into
+  a ``max_len``-width B = 1 cache, or on a session hit a chunk append of
+  the suffix (K4) into a copy of the stored cache, then decode against it
+  (K5); a keyed turn stores the cache in the pool afterwards (a paged pool
+  writes it into pages).
+
+On a GPU every attention step runs a hand-written CUDA kernel
+(``repro_torch.kernels``).
 
 The migration warm-start hooks make a torch node a DisCEdge node: when a
 replicated tokenized context lands here, ``prime`` chunk-prefills it into
@@ -16,10 +27,9 @@ pages, and ``install_kv_pages`` imports the digest-verified KV pages
 another node shipped (``export_kv_pages`` is the sending side; the wire
 format is the JAX package's, so JAX and torch nodes ship to each other).
 
-Routes this slice does not carry raise ``NotImplementedError`` naming the
-ROADMAP item: keyless or ``kv_reuse=False`` requests (the dense route,
-Queue 1 item 6). Where the JAX engine falls back to the dense route on
-page exhaustion at admission, this one raises :class:`PagePoolExhausted`.
+JAX's arrays are immutable; the port computes in place. So a cache the
+session pool keeps is never handed to compute: a hit appends into a copy
+(``clone_caches``), and a paged entry is materialised into fresh buffers.
 """
 
 from __future__ import annotations
@@ -32,7 +42,16 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, synchronize
-from ..models import ModelConfig, decode_step_paged, init_params, supports_append
+from ..models import (
+    ModelConfig,
+    decode_step,
+    decode_step_paged,
+    init_params,
+    prefill,
+    prefill_append,
+    supports_append,
+)
+from ..models.cache import clone_caches, trim_cache_prefix
 from ..tokenizer import EOS, IM_END, ByteLevelBPE, get_tokenizer
 from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .paged_kv import PagedKVAllocator
@@ -43,17 +62,6 @@ from .session_cache import (
     longest_common_prefix,
     warm_source_of,
 )
-
-DENSE_ROUTE = (
-    "the dense route (keyless or kv_reuse=False requests) is not ported yet "
-    "(ROADMAP, Queue 1 item 6)"
-)
-
-
-class PagePoolExhausted(RuntimeError):
-    """Admission could not get the pages a keyed request needs, even after
-    reclaiming other sessions' entries."""
-
 
 # ---------------------------------------------------------------------------
 # Service contract — copies of repro.core.manager's dataclasses, so a JAX
@@ -116,6 +124,10 @@ class PageShipment:
     payloads: List[bytes]
 
 
+def _bucket(n: int, step: int) -> int:
+    return max(step, ((n + step - 1) // step) * step)
+
+
 def truncate_for_cache(
     context_ids: List[int],
     prompt_ids: List[int],
@@ -141,26 +153,86 @@ def truncate_for_cache(
     return ids, min(max_new_tokens, budget)
 
 
+def bucketed_prefill(
+    params: Dict, cfg: ModelConfig, ids: List[int], max_len: int, bucket: int,
+    device: torch.device,
+):
+    """Full B = 1 prefill of ``ids`` into a fresh ``max_len``-slot cache at
+    the length rounded up to ``bucket`` (capped at ``max_len``) —
+    ``true_len`` masks the padding, as the JAX engines bucket to bound
+    their compiles. Returns (logits, caches, next_pos)."""
+    n = len(ids)
+    s = min(_bucket(n, bucket), max_len)
+    toks = np.zeros((1, s), np.int32)
+    toks[0, :n] = np.asarray(ids, np.int64) % cfg.vocab_size
+    return prefill(
+        params, cfg, torch.from_numpy(toks).to(device), max_len=max_len,
+        true_len=torch.tensor([n], dtype=torch.int32, device=device),
+    )
+
+
+def chunked_append(
+    params: Dict,
+    cfg: ModelConfig,
+    caches: List[Dict],
+    suffix_ids: List[int],
+    p0: int,
+    chunk: int,
+    bucket: int,
+):
+    """Chunked incremental prefill of ``suffix_ids`` into existing B = 1
+    full ``caches`` (in place) from absolute offset ``p0`` — the one loop
+    shared by the single-stream engine, the warm-start prime and the
+    full-width server's slot admission (``repro.serving.engine.
+    chunked_append``). Chunks are right-padded to ``bucket`` multiples and
+    capped at ``chunk`` slots, as in JAX. Returns (logits, caches,
+    next_pos)."""
+    dev = caches[0]["k"].device
+    logits, pos = None, torch.tensor([p0], dtype=torch.int32, device=dev)
+    i, m = 0, len(suffix_ids)
+    while i < m:
+        rem = m - i
+        s = min(chunk, _bucket(rem, bucket))
+        c = min(rem, s)
+        toks = np.zeros((1, s), np.int32)
+        toks[0, :c] = np.asarray(suffix_ids[i : i + c], np.int64) % cfg.vocab_size
+        logits, caches, pos = prefill_append(
+            params, cfg, caches, torch.from_numpy(toks).to(dev), p0 + i,
+            torch.tensor([c], dtype=torch.int32, device=dev),
+        )
+        i += c
+    return logits, caches, pos
+
+
 def prime_session_pool(
     pool: Optional[SessionCachePool],
     cache_key: str,
     token_ids: List[int],
+    max_len: int,
     max_input: int,
-    paged_fill: Callable,   # (ids, entry|None, usable) -> pages|None
+    append_fn: Callable,    # (base_caches, suffix_ids, p0) -> (logits, caches, pos)
+    prefill_fn: Callable,   # (ids) -> (logits, caches, pos)
+    paged_fill: Optional[Callable] = None,  # (ids, entry|None, usable) -> pages|None
     source: str = "prime",  # provenance of a FRESH install ("prime" = token
                             # recompute, "ship" = shipped KV pages)
 ) -> Tuple[bool, bool]:
     """Migration warm-start core shared by the single-stream engine and the
-    batched server (``repro.serving.engine.prime_session_pool``, paged
-    branch). Returns ``(warm, stored)``: ``warm`` — the pool now holds KV
-    for the full sequence; ``stored`` — prefill or install work ran.
+    batched server (``repro.serving.engine.prime_session_pool``). Returns
+    ``(warm, stored)``: ``warm`` — the pool now holds KV for the full
+    sequence; ``stored`` — prefill or install work ran.
 
     Guards, in order: nothing to do without a pool or tokens; a context
     longer than ``max_input`` is truncated on the serving path and could
     never prefix-match; a fresh prime into a full pool would be dropped by
     the low-priority put. A diverged entry is invalidated; an entry
     covering everything is a no-op; otherwise only the delta is filled.
-    Extending an entry keeps its provenance and its LRU position."""
+    Extending an entry keeps its provenance and its LRU position.
+
+    A paged pool with ``paged_fill`` fills pages straight (chunked paged
+    prefill or shipped pages); otherwise the KV goes through a dense lane —
+    a full prefill, or a chunk append onto a copy of the entry's cache (or
+    the gathered pages of another session's matching prefix) — and the
+    pool's put stores it (into pages when an allocator is bound)."""
     if pool is None or not token_ids:
         return False, False
     n = len(token_ids)
@@ -178,19 +250,53 @@ def prime_session_pool(
             return True, False          # already warm (covers everything)
         else:
             usable = lcp                # == entry.pos: extend the delta
-    if pool.allocator is None or (usable > 0 and not entry.paged):
-        # JAX primes such pools through a dense lane
-        raise NotImplementedError(
-            "priming a dense session pool is the dense route, not ported yet "
-            "(ROADMAP, Queue 1 item 6)"
+    if (
+        paged_fill is not None and pool.allocator is not None
+        and (usable == 0 or entry.paged)
+    ):
+        pages = paged_fill(token_ids, entry if usable > 0 else None, usable)
+        if pages is None:
+            return False, False
+        pool.put(
+            cache_key,
+            CacheEntry(
+                token_ids=list(token_ids), pages=pages,
+                source=entry.source if usable > 0 else source,
+            ),
+            low_priority=True,
         )
-    pages = paged_fill(token_ids, entry if usable > 0 else None, usable)
-    if pages is None:
-        return False, False
+        pool.primes += 1
+        return True, True
+    # the dense lane: another session's resident pages matching this
+    # context shrink the prefill and the page budget the put will need
+    shared_pages: List[int] = []
+    stok = 0
+    if pool.allocator is not None:
+        shared_pages = pool.allocator.match_prefix(token_ids, n)
+        stok = len(shared_pages) * pool.allocator.page_size
+        if pool.allocator.n_free < pool.allocator.pages_for(n) - len(shared_pages):
+            return False, False
+    if usable > 0:
+        base = (
+            pool.materialize(entry, usable, max_len) if entry.paged
+            else clone_caches(entry.caches)
+        )
+        _, caches, _ = append_fn(base, token_ids[usable:], usable)
+    elif stok > 0:
+        base = pool.allocator.gather(shared_pages, stok, max_len)
+        _, caches, _ = append_fn(base, token_ids[stok:], stok)
+        pool.shared_hits += 1
+        pool.shared_tokens += stok
+    else:
+        _, caches, _ = prefill_fn(token_ids)
+    caches = trim_cache_prefix(caches, n)
+    # the prime's compute finishes here, off the hot path: left queued, it
+    # would contend with the next serving turn's measured work
+    synchronize(caches[0]["k"].device)
     pool.put(
         cache_key,
         CacheEntry(
-            token_ids=list(token_ids), pages=pages,
+            token_ids=list(token_ids), caches=caches,
             source=entry.source if usable > 0 else source,
         ),
         low_priority=True,
@@ -205,7 +311,7 @@ class GenerateResult:
 
     token_ids: List[int]
     cache_hit: bool = False
-    reused_tokens: int = 0       # prefix tokens served from resident pages
+    reused_tokens: int = 0       # prefix tokens served from the session pool
     prefill_tokens: int = 0      # tokens actually prefilled this turn
     inference_ms: float = 0.0    # hot path: prefill + decode (pool update excluded)
     cache_update_ms: float = 0.0  # session-pool update, off the hot path
@@ -221,7 +327,8 @@ class InferenceEngine:
     cfg: ModelConfig
     params: Dict
     device: torch.device
-    max_len: int = 1024          # table slots (context + generation budget)
+    max_len: int = 1024          # cache slots (context + generation budget)
+    bucket: int = 64             # dense full-prefill / append bucket
     append_chunk: int = 256      # max prefill chunk
     sync_every: int = 8          # decode steps between host syncs / stop scans
     stop_tokens: Tuple[int, ...] = (EOS, IM_END)
@@ -230,6 +337,9 @@ class InferenceEngine:
     # migration warm-start accounting (prime runs off the serving hot path)
     prime_count: int = 0
     prime_ms: float = 0.0
+    # keyed generations that had to leave the paged route (a dense entry in
+    # a mixed-topology pool, or page exhaustion at admission)
+    paged_fallbacks: int = 0
 
     @classmethod
     def create(
@@ -238,25 +348,20 @@ class InferenceEngine:
         seed: int = 0,
         max_len: int = 1024,
         session_cache_capacity: int = 4,
-        page_size: int = 16,
+        page_size: int = 0,
         kv_pages: int = 0,
         device: DeviceLike = None,
         params: Optional[Dict] = None,
     ) -> "InferenceEngine":
-        """A paged engine on ``device`` (default ``"cuda"``; raises without
-        a GPU unless ``device="cpu"``). Weights are drawn from ``seed`` with
-        a ``torch.Generator`` unless ``params`` (e.g. bridged JAX weights,
-        ``models.params_from_numpy``) are given. The session pool stores its
-        entries paged in one :class:`PagedKVAllocator` of ``kv_pages``
-        pages of ``page_size`` tokens."""
+        """An engine on ``device`` (default ``"cuda"``; raises without a GPU
+        unless ``device="cpu"``). Weights are drawn from ``seed`` with a
+        ``torch.Generator`` unless ``params`` (e.g. bridged JAX weights,
+        ``models.params_from_numpy``) are given. With ``page_size`` and
+        ``kv_pages`` > 0 the session pool stores its entries paged in one
+        :class:`PagedKVAllocator` and keyed turns take the paged route;
+        otherwise (the default, as in JAX) the pool holds dense caches and
+        every turn takes the dense route."""
         dev = resolve_device(device)
-        if page_size <= 0 or kv_pages <= 0:
-            raise NotImplementedError(
-                "only the paged route is ported: pass page_size > 0 and "
-                f"kv_pages > 0 ({DENSE_ROUTE})"
-            )
-        if max_len % page_size:
-            raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")
         if params is None:
             params = init_params(cfg, seed, dev)
         pool = (
@@ -264,7 +369,9 @@ class InferenceEngine:
             if session_cache_capacity > 0 and supports_append(cfg)
             else None
         )
-        if pool is not None:
+        if pool is not None and page_size > 0 and kv_pages > 0:
+            if max_len % page_size:
+                raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")
             pool.allocator = PagedKVAllocator(
                 cfg, page_size=page_size, n_pages=kv_pages, device=dev
             )
@@ -279,6 +386,26 @@ class InferenceEngine:
                 self.cfg, self.params, self.session_pool.allocator, self.device
             )
         return self._prefiller
+
+    # -- dense prefill paths -------------------------------------------------
+    def _full_prefill(self, input_ids: List[int]):
+        """Full prefill into a fresh ``max_len``-width B = 1 cache (bucket
+        ``self.bucket``)."""
+        return bucketed_prefill(
+            self.params, self.cfg, input_ids, self.max_len, self.bucket, self.device
+        )
+
+    def _append_prefill(self, caches, suffix_ids: List[int], p0: int):
+        """Chunked incremental prefill of ``suffix_ids`` from ``p0`` into
+        ``caches`` (in place: the caller passes a cache it owns)."""
+        return chunked_append(
+            self.params, self.cfg, caches, suffix_ids, p0, self.append_chunk, self.bucket,
+        )
+
+    def _trim_for_pool(self, caches, n_valid: int):
+        """Mask kv_pos beyond the kept prefix (decode may have run past a
+        stop token between host syncs)."""
+        return trim_cache_prefix(caches, n_valid)
 
     # -- migration warm-start ----------------------------------------------
     def prime(self, cache_key: str, token_ids: List[int]) -> bool:
@@ -304,7 +431,11 @@ class InferenceEngine:
         imported into fresh pages; only the partial tail page (and any
         coverage gap) is prefilled. The entry's provenance is ``"ship"``,
         so the next turn's warm start reports ``"pages"``. False when the
-        pages can't be taken — the shipper then recomputes from tokens."""
+        pages can't be taken (a dense pool, page exhaustion) — the shipper
+        then recomputes from tokens."""
+        pool = self.session_pool
+        if pool is None or pool.allocator is None:
+            return False
         return self._prime(cache_key, token_ids, payloads, have_pages, "ship")
 
     def _prime(
@@ -312,16 +443,16 @@ class InferenceEngine:
         shipped: Optional[List[bytes]], have_pages: int, source: str,
     ) -> bool:
         pool = self.session_pool
-        if pool is None:
-            return False
         t0 = time.perf_counter()
-        warm, stored = prime_session_pool(
-            pool, cache_key, list(token_ids), self.max_len - 1 - 16,
-            lambda ids, entry, usable: prime_fill_pages(
+        paged_fill = None
+        if pool is not None and pool.allocator is not None:
+            paged_fill = lambda ids, entry, usable: prime_fill_pages(  # noqa: E731
                 pool, self._paged_prefiller(), ids, entry, usable,
                 shipped=shipped, ship_have=have_pages,
-            ),
-            source=source,
+            )
+        warm, stored = prime_session_pool(
+            pool, cache_key, list(token_ids), self.max_len, self.max_len - 1 - 16,
+            self._append_prefill, self._full_prefill, paged_fill=paged_fill, source=source,
         )
         if stored:
             self.prime_count += 1
@@ -336,14 +467,147 @@ class InferenceEngine:
         temperature: float = 0.0,
         cache_key: Optional[str] = None,
     ) -> GenerateResult:
-        """Single-sequence keyed generation on the page pool, with
-        session-level KV reuse (see :meth:`_generate_paged`)."""
+        """Single-sequence generation with optional session-level KV reuse
+        when ``cache_key`` is given. With a paged session pool, keyed turns
+        run fully paged (:meth:`_generate_paged`); keyless turns, turns of
+        a dense pool and the paged misfits (a dense entry in a
+        mixed-topology pool, page exhaustion — counted in
+        ``paged_fallbacks``) take the dense route
+        (:meth:`_generate_dense`)."""
         input_ids = list(input_ids)
         n = len(input_ids)
         assert n + max_new_tokens <= self.max_len, (n, max_new_tokens, self.max_len)
-        if cache_key is None or self.session_pool is None:
-            raise NotImplementedError(DENSE_ROUTE)
-        return self._generate_paged(input_ids, max_new_tokens, temperature, cache_key)
+        pool = self.session_pool if cache_key is not None else None
+        if pool is not None and pool.allocator is not None:
+            res = self._generate_paged(input_ids, max_new_tokens, temperature, cache_key)
+            if res is not None:
+                return res
+            self.paged_fallbacks += 1
+        return self._generate_dense(input_ids, max_new_tokens, temperature, cache_key)
+
+    def _generate_dense(
+        self,
+        input_ids: List[int],
+        max_new_tokens: int,
+        temperature: float,
+        cache_key: Optional[str],
+    ) -> GenerateResult:
+        """The dense-transient route: a full prefill into a ``max_len``-width
+        B = 1 cache — or, on a session hit, a chunk append of the suffix into
+        a copy of the stored cache (a paged entry, or another session's
+        matching pages, materialised) — then decode against it with one
+        host sync per ``sync_every`` window, and a keyed turn stores the
+        cache trimmed to what it kept (a paged pool pages it on the way in)."""
+        n = len(input_ids)
+        pool = self.session_pool if cache_key is not None else None
+        dev = self.device
+        t0 = time.perf_counter()
+
+        entry, usable = (None, 0)
+        if pool is not None:
+            entry, usable = pool.match(cache_key, input_ids)
+        shared_pages: List[int] = []
+        stok = 0
+        if pool is not None and pool.allocator is not None:
+            shared_pages, stok = pool.match_shared_prefix(input_ids)
+        if stok > usable:
+            # another session's pages cover more than this key's own entry:
+            # gather them into a fresh dense lane and prefill the remainder
+            base = pool.allocator.gather(shared_pages, stok, self.max_len)
+            logits, caches, pos = self._append_prefill(base, input_ids[stok:], stok)
+            reused, warm_source = stok, "none"
+            pool.shared_hits += 1
+            pool.shared_tokens += stok
+        elif entry is not None and usable > 0:
+            if entry.paged:
+                # fresh buffers with kv_pos masked to `usable` (a resend too)
+                base = pool.materialize(entry, usable, self.max_len)
+            else:
+                # the pool keeps the entry: append into a copy
+                base = clone_caches(entry.caches)
+                if usable < entry.pos:
+                    # a resend: the ids stop inside the cached prefix
+                    base = self._trim_for_pool(base, usable)
+            logits, caches, pos = self._append_prefill(base, input_ids[usable:], usable)
+            reused = usable
+            warm_source = warm_source_of(entry.source)
+        else:
+            logits, caches, pos = self._full_prefill(input_ids)
+            reused, warm_source = 0, "none"
+
+        tok = sample(logits, temperature=temperature)
+        synchronize(dev)
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+
+        def step(tok):
+            nonlocal pos
+            logits, _ = decode_step(self.params, self.cfg, caches, tok[:, None], pos)
+            pos = pos + 1
+            return logits
+
+        out, gaps = self._decode(tok, max_new_tokens, temperature, step)
+        inference_ms = (time.perf_counter() - t0) * 1e3
+
+        # session-pool update, off the hot path (the paper's asynchronous
+        # context update, §4.2.1): every emitted token was decoded, so the
+        # stored prefix is input_ids + out; kv_pos past it is trimmed
+        cache_update_ms = 0.0
+        if pool is not None:
+            t1 = time.perf_counter()
+            prefix = input_ids + out
+            pool.put(
+                cache_key,
+                CacheEntry(
+                    token_ids=prefix, caches=self._trim_for_pool(caches, len(prefix)),
+                    source="serve",
+                ),
+            )
+            cache_update_ms = (time.perf_counter() - t1) * 1e3
+
+        return _generate_result(
+            out, gaps, n, reused, warm_source, ttft_ms, inference_ms, cache_update_ms,
+        )
+
+    def _decode(
+        self,
+        tok: torch.Tensor,
+        max_new_tokens: int,
+        temperature: float,
+        step: Callable[[torch.Tensor], torch.Tensor],
+        window: Optional[Callable[[int], Tuple[int, bool]]] = None,
+    ) -> Tuple[List[int], List[float]]:
+        """Decode from the first sampled token ``tok`` with batched host
+        sync: tokens stay on the device; every ``sync_every`` steps one
+        transfer pulls the window and scans it for stop tokens; steps
+        decoded past a stop are discarded. ``step(tok)`` runs one decode
+        step and returns its logits (1, 1, V). ``window(w)``, when given,
+        readies the next window of at most ``w`` steps and returns (steps,
+        last window). Returns (token ids, per-token gaps in ms)."""
+        out: List[int] = []
+        gaps: List[float] = []
+        remaining = max_new_tokens
+        while remaining > 0:
+            w, last = min(self.sync_every, remaining), False
+            if window is not None:
+                w, last = window(w)
+                if w <= 0:
+                    break
+            t_w = time.perf_counter()
+            toks = []
+            for _ in range(w):
+                toks.append(tok)
+                tok = sample(step(tok)[:, 0], temperature=temperature)
+            remaining -= w
+            host = torch.stack(toks)[:, 0].cpu().numpy()   # single device sync
+            gap = (time.perf_counter() - t_w) * 1e3 / w
+            for t in host:
+                out.append(int(t))
+                gaps.append(gap)
+                if int(t) in self.stop_tokens:
+                    return out, gaps
+            if last:
+                break
+        return out, gaps
 
     def _generate_paged(
         self,
@@ -351,7 +615,7 @@ class InferenceEngine:
         max_new_tokens: int,
         temperature: float,
         cache_key: str,
-    ) -> GenerateResult:
+    ) -> Optional[GenerateResult]:
         """Keyed generation straight on the page pool: admission shares the
         session entry's full pages (its partial tail page is copied into a
         fresh exclusively-held page) or a longer cross-session content-index
@@ -359,7 +623,10 @@ class InferenceEngine:
         suffix into them, then decodes through the page table at a
         power-of-two table width that grows page by page ahead of each
         host-sync window. The token, its position and ``kv_pos`` stay on the
-        device; the host syncs once per ``sync_every`` window."""
+        device; the host syncs once per ``sync_every`` window. Returns None
+        (nothing allocated or counted) when the pool can't serve this
+        request — a dense entry matched, or the pages aren't there — and the
+        caller falls back to the dense route."""
         pool = self.session_pool
         alloc = pool.allocator
         ps = alloc.page_size
@@ -368,6 +635,8 @@ class InferenceEngine:
         t0 = time.perf_counter()
 
         entry, usable = pool.match(cache_key, input_ids)
+        if entry is not None and not entry.paged:
+            return None  # mixed-topology pool: a dense entry matched
         usable = min(usable, n - 1)
         cross = alloc.match_prefix(input_ids, n - 1)
         kind, cover = ("entry", usable) if usable > 0 else ("none", 0)
@@ -390,10 +659,7 @@ class InferenceEngine:
         if fresh is None:
             if shared:
                 alloc.decref(shared)
-            raise PagePoolExhausted(
-                f"{alloc.pages_for(n + 1) - skip} pages needed for a {n}-token "
-                f"request, {alloc.n_free} free of {alloc.n_pages - 1}"
-            )
+            return None
         pages = shared + fresh
         if tail_src is not None:
             alloc.copy_page(tail_src, fresh[0])
@@ -411,51 +677,42 @@ class InferenceEngine:
         iota = torch.arange(self.max_len, dtype=torch.int32, device=dev)
         kv_full = torch.where(iota < n, iota, torch.full_like(iota, -1))[None, :]
         pos = torch.full((1,), n, dtype=torch.int32, device=dev)
-        out: List[int] = []
-        gaps: List[float] = []
         pos_abs = n
-        remaining = max_new_tokens
-        stopped = early = False
-        while remaining > 0 and not stopped and not early:
-            wsteps = min(self.sync_every, remaining)
+        table = kv_view = None
+
+        def window(wsteps: int):
+            nonlocal pages, table, kv_view
+            last = False
             need = alloc.pages_for(pos_abs + wsteps)
             if need > len(pages):
                 more = self._alloc_paged(need - len(pages), exclude=cache_key)
                 if more is None:
                     # a window the pool can't back is truncated: generation
                     # stops early, never with a silently dropped write
-                    early = True
+                    last = True
                     wsteps = min(wsteps, len(pages) * ps - pos_abs)
                     if wsteps <= 0:
-                        break
+                        return 0, True
                 else:
                     pages = pages + more
             w = 1
             while w < len(pages):
                 w *= 2
-            w = min(w, self.max_len // ps)
-            wp = w * ps
+            wp = min(w, self.max_len // ps) * ps
             table = torch.from_numpy(alloc.table_for(pages, wp)).to(dev)[None, :]
             kv_view = kv_full[:, :wp]
-            t_w = time.perf_counter()
-            window = []
-            for _ in range(wsteps):
-                window.append(tok)
-                logits = decode_step_paged(
-                    self.params, self.cfg, alloc.pools, table, kv_view, tok[:, None], pos,
-                )
-                pos = pos + 1
-                pos_abs += 1
-                tok = sample(logits[:, 0], temperature=temperature)
-            remaining -= wsteps
-            host = torch.stack(window)[:, 0].cpu().numpy()   # single device sync
-            gap = (time.perf_counter() - t_w) * 1e3 / wsteps
-            for t in host:
-                out.append(int(t))
-                gaps.append(gap)
-                if int(t) in self.stop_tokens:
-                    stopped = True
-                    break
+            return wsteps, last
+
+        def step(tok):
+            nonlocal pos, pos_abs
+            logits = decode_step_paged(
+                self.params, self.cfg, alloc.pools, table, kv_view, tok[:, None], pos,
+            )
+            pos = pos + 1
+            pos_abs += 1
+            return logits
+
+        out, gaps = self._decode(tok, max_new_tokens, temperature, step, window)
         inference_ms = (time.perf_counter() - t0) * 1e3
 
         # write-back MOVES the pages into the pool entry (zero-copy); pages
@@ -468,18 +725,8 @@ class InferenceEngine:
         pool.put(cache_key, CacheEntry(token_ids=prefix, pages=pages[:keep], source="serve"))
         cache_update_ms = (time.perf_counter() - t1) * 1e3
 
-        return GenerateResult(
-            token_ids=out,
-            cache_hit=cover > 0,
-            reused_tokens=cover,
-            prefill_tokens=n - cover,
-            inference_ms=inference_ms,
-            cache_update_ms=cache_update_ms,
-            warm_start=warm_source != "none",
-            warm_source=warm_source,
-            ttft_ms=ttft_ms,
-            decode_p50_ms=float(np.percentile(gaps, 50)) if gaps else 0.0,
-            decode_p99_ms=float(np.percentile(gaps, 99)) if gaps else 0.0,
+        return _generate_result(
+            out, gaps, n, cover, warm_source, ttft_ms, inference_ms, cache_update_ms,
         )
 
     def _alloc_paged(self, m: int, exclude: Optional[str] = None) -> Optional[List[int]]:
@@ -491,6 +738,27 @@ class InferenceEngine:
             self.session_pool.reclaim(m, exclude=exclude)
             pages = alloc.alloc(m)
         return pages
+
+
+def _generate_result(
+    out: List[int], gaps: List[float], n: int, reused: int, warm_source: str,
+    ttft_ms: float, inference_ms: float, cache_update_ms: float,
+) -> GenerateResult:
+    """One turn's :class:`GenerateResult`, the same accounting on both
+    routes: a hit is a turn that reused any KV."""
+    return GenerateResult(
+        token_ids=out,
+        cache_hit=reused > 0,
+        reused_tokens=reused,
+        prefill_tokens=n - reused,
+        inference_ms=inference_ms,
+        cache_update_ms=cache_update_ms,
+        warm_start=warm_source != "none",
+        warm_source=warm_source,
+        ttft_ms=ttft_ms,
+        decode_p50_ms=float(np.percentile(gaps, 50)) if gaps else 0.0,
+        decode_p99_ms=float(np.percentile(gaps, 99)) if gaps else 0.0,
+    )
 
 
 def export_entry_pages(
@@ -518,7 +786,7 @@ def resident_entry_pages(
     """Full prefix pages of ``token_ids`` that ``cache_key``'s entry already
     holds — shipped deltas skip them."""
     entry = pool.peek(cache_key) if pool is not None else None
-    if entry is None or not entry.paged:
+    if entry is None or not entry.paged or pool.allocator is None:
         return 0
     lcp = longest_common_prefix(entry.token_ids[: entry.pos], list(token_ids))
     return lcp // pool.allocator.page_size
@@ -529,10 +797,12 @@ class TorchLLMService:
     """LLM Service (paper §3.2) backed by the PyTorch engine — the
     counterpart of ``repro.serving.engine.JaxLLMService``. Accepts the
     pre-tokenized context next to the prompt ids plus the session's
-    ``cache_key``; hit turns prefill only the uncovered suffix. Context that
-    would overflow the engine is truncated from the oldest tokens. It
-    duck-types ``repro.core.manager.LLMServiceProtocol``, so a JAX
-    ``EdgeNode`` can mount it."""
+    ``cache_key``; hit turns prefill only the uncovered suffix. With
+    ``kv_reuse=False`` (the paper's own llama.cpp behaviour) every turn
+    prefills its whole context on the dense route. Context that would
+    overflow the engine is truncated from the oldest tokens. It duck-types
+    ``repro.core.manager.LLMServiceProtocol``, so a JAX ``EdgeNode`` can
+    mount it."""
 
     model: str
     engine: InferenceEngine
@@ -555,7 +825,7 @@ class TorchLLMService:
         max_len: int = 2048,
         kv_reuse: bool = True,
         session_cache_capacity: int = 4,
-        page_size: int = 16,
+        page_size: int = 0,
         kv_pages: int = 0,
         device: DeviceLike = None,
         params: Optional[Dict] = None,
@@ -570,8 +840,7 @@ class TorchLLMService:
 
     def capabilities(self) -> ServiceCapabilities:
         return ServiceCapabilities(
-            prime=self.engine.session_pool is not None, kv_reuse=self.kv_reuse,
-            batched=False, n_slots=1,
+            prime=self.kv_reuse, kv_reuse=self.kv_reuse, batched=False, n_slots=1,
         )
 
     def prime(self, cache_key: str, token_ids: List[int]) -> bool:
@@ -586,9 +855,12 @@ class TorchLLMService:
     # -- KV-page shipping hooks (driven by repro.store.kv_ship.KVShipper) --
     def kv_ship_profile(self) -> Optional[NodeShipProfile]:
         """This node's shipping constants, or None when it can't ship (reuse
-        off, or no measured prefill constant)."""
+        off, a dense pool, or no measured prefill constant)."""
         pool = self.engine.session_pool
-        if not self.kv_reuse or pool is None or self.ship_prefill_ms_per_token <= 0:
+        if (
+            not self.kv_reuse or pool is None or pool.allocator is None
+            or self.ship_prefill_ms_per_token <= 0
+        ):
             return None
         return NodeShipProfile(
             page_size=pool.allocator.page_size,

@@ -3,8 +3,10 @@ counterpart of ``repro.serving.paged_kv``, as far as the paged route needs
 it: page lifecycle (``alloc``/``incref``/``decref``), cross-session prefix
 sharing (``PrefixPageIndex``, ``match_prefix``, ``register_pages``), page
 tables (``table_for``), the tail-page handoff (``copy_page``), memory
-accounting (``page_bytes``, ``stats``) and the KV-page shipping wire format
-(``export_page_bytes``/``import_page_bytes``).
+accounting (``page_bytes``, ``stats``), the KV-page shipping wire format
+(``export_page_bytes``/``import_page_bytes``), and the dense-lane moves
+(``write_through``, ``store``, ``gather``) that put a dense route's B = 1
+cache into pages and materialise pages back into one.
 
 One shared physical pool of fixed-size KV pages per node service, and
 per-sequence page tables sized to each sequence's actual token count.
@@ -14,9 +16,8 @@ reference-counted per page; page id 0 is the scratch page (table padding),
 never allocated.
 
 The pools are long-lived device tensors that compute writes **in place**
-(``models.cache``); ``copy_page`` and ``import_page_bytes`` write in place
-too. The JAX package's dense-lane moves (``store``/``gather``/
-``write_through``) belong to the dense route (ROADMAP, Queue 1 item 6).
+(``models.cache``); ``copy_page``, ``import_page_bytes`` and
+``write_through`` write in place too.
 """
 
 from __future__ import annotations
@@ -258,6 +259,76 @@ class PagedKVAllocator:
                 block = torch.from_numpy(raw).view(cell.dtype).reshape(cell.shape)
                 cell.copy_(block.to(cell.device))
                 off += n
+
+    # -- dense-lane moves (the dense route's pool storage) -------------------
+    def write_through(
+        self, pages: Sequence[int], dense: List[Dict[str, torch.Tensor]], n_skip: int = 0
+    ) -> None:
+        """Write a dense B = 1 lane (per group ``{"k","v"}`` of (L, 1, W, KV,
+        Dh), W a page_size multiple covering ``pages``) into ``pages``, in
+        place. The ``n_skip`` leading pages are not written: shared prefix
+        pages are read-only for every sharer (copy-on-write), and their
+        bytes are already what the lane holds there. JAX also writes its
+        scratch page through the table's padding; nothing reads those
+        bytes, so the port leaves the scratch page alone."""
+        pages = list(pages)
+        width = int(dense[0]["k"].shape[2])
+        mp = width // self.page_size
+        assert width % self.page_size == 0 and len(pages) <= mp, (width, len(pages))
+        if n_skip >= len(pages):
+            return
+        dev = self.pools[0]["k"].device
+        idx = torch.tensor(pages[n_skip:], dtype=torch.long, device=dev)
+        for pool, c in zip(self.pools, dense):
+            for name in ("k", "v"):
+                lane = c[name][:, 0]
+                blocks = lane.reshape((lane.shape[0], mp, self.page_size) + tuple(lane.shape[2:]))
+                pool[name][:, idx] = blocks[:, n_skip : len(pages)].to(pool[name].dtype)
+
+    def store(
+        self, dense: List[Dict[str, torch.Tensor]], n_tokens: int,
+        token_ids: Optional[Sequence[int]] = None,
+    ) -> Optional[List[int]]:
+        """Page an at-rest dense lane: share any resident prefix pages whose
+        content matches ``token_ids`` (cross-session, incref — their write
+        is skipped), allocate fresh pages for the rest, write the lane
+        through, and index the stored full pages. Returns the page list
+        (the caller owns one ref per page), or None when the pool can't
+        supply the fresh pages (shared refs released again)."""
+        shared = self.match_prefix(token_ids, n_tokens) if token_ids else []
+        if shared:
+            self.incref(shared)
+        fresh = self.alloc(self.pages_for(n_tokens) - len(shared))
+        if fresh is None:
+            if shared:
+                self.decref(shared)
+            return None
+        pages = shared + fresh
+        if fresh:
+            self.write_through(pages, dense, n_skip=len(shared))
+        if token_ids is not None:
+            self.register_pages(token_ids, pages)
+        return pages
+
+    def gather(self, pages: Sequence[int], n_valid: int, width: int) -> List[Dict[str, torch.Tensor]]:
+        """Materialise pages as fresh dense B = 1 caches of ``width`` slots
+        with kv_pos valid on [0, n_valid). Pages beyond width // page_size
+        are not gathered; the table's padding reads the scratch page, whose
+        slots kv_pos leaves invalid."""
+        mp = width // self.page_size
+        dev = self.pools[0]["k"].device
+        table = torch.from_numpy(self.table_for(list(pages)[:mp], width)).to(dev).long()
+        j = torch.arange(width, dtype=torch.int32, device=dev)
+        kv_pos = torch.where(j < n_valid, j, torch.full_like(j, -1))[None, :]
+        out = []
+        for pool in self.pools:
+            flat = (pool["k"].shape[0], 1, width) + tuple(pool["k"].shape[3:])
+            out.append({
+                "k": pool["k"][:, table].reshape(flat),
+                "v": pool["v"][:, table].reshape(flat),
+                "kv_pos": kv_pos.clone(),
+            })
+        return out
 
     def stats(self) -> Dict[str, int]:
         return {

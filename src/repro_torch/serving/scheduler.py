@@ -1,10 +1,20 @@
-"""Multi-tenant continuous-batching server on the page pool — the PyTorch
-counterpart of ``repro.serving.scheduler`` (paged mode).
+"""Multi-tenant continuous-batching server — the PyTorch counterpart of
+``repro.serving.scheduler``, in its two modes.
 
-A fixed decode batch of ``n_slots`` lanes shares one physical KV page pool
-with the session pool. Every :meth:`BatchedServer.step` is a *unified
-step*: admission only plans (it reserves pages, shares resident prefix
-pages, and queues the uncovered prompt tokens as a chunk plan); the step
+**Full width** (``paged=False``, the default as in JAX): ``n_slots`` lanes
+of one ``make_decode_caches`` batch, ``max_len`` slots each. Admission
+prefills a request at once — a full prefill (bucket 16, K4), or on a
+session hit a chunk append of the suffix (chunk 128, bucket 16, K4) onto a
+copy of the stored cache — and copies the B = 1 result into its lane;
+every step decodes all lanes (empty ones too, into their own lanes at
+their stale positions, as in JAX) through K5. A finished keyed request's
+lane is copied out into the session pool.
+
+**Paged** (``paged=True``): a fixed decode batch of ``n_slots`` lanes
+shares one physical KV page pool with the session pool. Every
+:meth:`BatchedServer.step` is a *unified step*: admission only plans (it
+reserves pages, shares resident prefix pages, and queues the uncovered
+prompt tokens as a chunk plan); the step
 then drains up to ``prefill_chunk_tokens`` prompt tokens from the plans in
 strict FIFO order, straight into the lanes' pages (K3), and decodes every
 decode-ready lane in one batched call. When the ready lanes' page tables
@@ -19,8 +29,7 @@ and ``install_shipped_pages`` are the migration warm-start hooks.
 the submit/await path, with per-request ``queue_ms``/``batch_size``.
 
 Tables, chunk widths and bucketing are the JAX server's, so the two
-compare like with like. The full-width (``paged=False``) server is the
-dense route and raises (ROADMAP, Queue 1 item 6).
+compare like with like.
 """
 
 from __future__ import annotations
@@ -33,7 +42,15 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import ModelConfig, decode_step_paged, init_params, supports_append
+from ..models import (
+    ModelConfig,
+    decode_step,
+    decode_step_paged,
+    init_params,
+    make_decode_caches,
+    supports_append,
+)
+from ..models.cache import clone_caches, trim_cache_prefix
 from ..tokenizer import EOS, IM_END, ByteLevelBPE, get_tokenizer
 from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .engine import (
@@ -41,6 +58,8 @@ from .engine import (
     PageShipment,
     ServiceCapabilities,
     ServiceResult,
+    bucketed_prefill,
+    chunked_append,
     export_entry_pages,
     prime_session_pool,
     resident_entry_pages,
@@ -54,12 +73,6 @@ from .session_cache import (
     longest_common_prefix,
     warm_source_of,
 )
-
-FULL_WIDTH = (
-    "the full-width batched server (paged=False) is the dense route, not "
-    "ported yet (ROADMAP, Queue 1 item 6)"
-)
-
 
 @dataclass
 class SlotState:
@@ -137,19 +150,18 @@ class BatchedServer:
         prefill_chunk_tokens: Optional[int] = 64,
         device: DeviceLike = None,
     ) -> None:
-        if not paged:
-            raise NotImplementedError(FULL_WIDTH)
         if not supports_append(cfg):
             raise NotImplementedError(
-                f"paged batched serving requires full-cache dense groups ({cfg.name})"
+                f"batched serving requires full-cache dense groups ({cfg.name})"
             )
-        if max_len % page_size:
+        if paged and max_len % page_size:
             raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_len = n_slots, max_len
         self.stop_tokens = set(stop_tokens)
         self.session_pool = session_pool
+        self.paged = paged
         # per-step prompt-token budget: each step drains at most this many
         # prompt tokens before decoding, so a long admission never stalls
         # the resident decoders for its whole prefill (None = unbounded)
@@ -160,6 +172,17 @@ class BatchedServer:
         self._submit_times: Dict[int, float] = {}
         self._next_tok = np.zeros((n_slots,), np.int32)
         self._req_seq = 0
+        # host-side so lanes that must not decode are pushed past the
+        # trimmed table without a device round trip
+        self._pos = np.zeros((n_slots,), np.int32)
+        # the paged mode's per-slot pages and chunk-plan FIFO (both stay
+        # empty in full-width mode)
+        self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+        self._prefill_fifo: List[int] = []
+        if not paged:
+            self.allocator = None
+            self.caches = make_decode_caches(cfg, n_slots, max_len, device=self.device)
+            return
 
         # one shared page pool backs every decode lane AND every session
         # entry; the default budget is the full-width worst case
@@ -177,16 +200,12 @@ class BatchedServer:
             # pages are the memory bound: the entry cap must never evict
             # before the page budget does (every entry holds >= 1 page)
             session_pool.capacity = max(session_pool.capacity, kv_pages)
-        self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+        self.caches = None
         # the table lives on the host and is uploaded once per step
         self._table = np.full((n_slots, max_len // page_size), SCRATCH_PAGE, np.int32)
         self._kv_pos = torch.full((n_slots, max_len), -1, dtype=torch.int32, device=self.device)
         self._prefiller = PagedPrefiller(cfg, params, self.allocator, self.device)
-        self._prefill_fifo: List[int] = []
         self._iota = torch.arange(max_len, dtype=torch.int32, device=self.device)
-        # host-side so lanes that must not decode are pushed past the
-        # trimmed table without a device round trip
-        self._pos = np.zeros((n_slots,), np.int32)
 
     # ------------------------------------------------------------------
     def submit(
@@ -208,14 +227,39 @@ class BatchedServer:
     def busy(self) -> bool:
         return any(s is not None for s in self.slots) or bool(self.queue)
 
+    @staticmethod
+    def _cache_bytes(caches) -> int:
+        """Bytes of the k/v tensors of a cache list (kv_pos excluded)."""
+        return sum(c[name].numel() * c[name].element_size() for c in caches for name in ("k", "v"))
+
     def resident_kv_bytes(self) -> int:
-        """KV bytes held between steps: the pages in use (slots and session
-        entries share the pool)."""
-        return self.allocator.resident_kv_bytes
+        """KV bytes held between steps: the pages in use for the paged
+        server (slots and session entries share the pool); for the
+        full-width server, the always-allocated lanes plus every pool entry
+        (a paged entry at its page cost)."""
+        if self.paged:
+            return self.allocator.resident_kv_bytes
+        total = self._cache_bytes(self.caches)
+        pool = self.session_pool
+        if pool is not None:
+            for e in pool._entries.values():
+                if e.paged and pool.allocator is not None:
+                    total += len(e.pages) * pool.allocator.page_bytes
+                elif e.caches is not None:
+                    total += self._cache_bytes(e.caches)
+        return total
 
     def total_kv_bytes(self) -> int:
         """Worst-case KV budget this server can consume."""
-        return self.allocator.total_kv_bytes
+        if self.paged:
+            return self.allocator.total_kv_bytes
+        total = self._cache_bytes(self.caches)
+        pool = self.session_pool
+        if pool is None:
+            return total
+        if pool.allocator is not None:
+            return total + pool.allocator.total_kv_bytes
+        return total + pool.capacity * (total // max(1, self.n_slots))
 
     # -- slot admission -------------------------------------------------
     def _insert_slot(
@@ -232,7 +276,59 @@ class BatchedServer:
         entry, usable = None, 0
         if self.session_pool is not None and cache_key is not None:
             entry, usable = self.session_pool.match(cache_key, ids)
-        return self._admit_paged(idx, rid, ids, max_new, entry, usable, cache_key)
+        if self.paged:
+            return self._admit_paged(idx, rid, ids, max_new, entry, usable, cache_key)
+
+        if entry is not None and usable > 0:
+            if entry.paged:
+                # a pool whose entries are paged (shared with a paged
+                # engine on the node): fresh buffers, kv_pos masked to usable
+                base = self.session_pool.materialize(entry, usable, self.max_len)
+            else:
+                # the pool keeps the entry: append into a copy
+                base = clone_caches(entry.caches)
+                if usable < entry.pos:
+                    base = trim_cache_prefix(base, usable)
+            logits, one, _ = self._append_suffix(base, ids[usable:], usable)
+        else:
+            usable = 0
+            logits, one, _ = self._bucketed_prefill(ids)
+        for big, small in zip(self.caches, one):
+            for name in big:
+                self._put_entry(big[name], small[name], idx, name)
+        warm_source = (
+            warm_source_of(entry.source) if entry is not None and usable > 0 else "none"
+        )
+        self._pos[idx] = n
+        self._next_tok[idx] = int(torch.argmax(logits[0]))
+        now = time.perf_counter()
+        self.slots[idx] = SlotState(
+            request_id=rid, pos=n, max_new=max_new,
+            cache_key=cache_key, token_ids=list(ids), reused_tokens=usable,
+            warm_start=warm_source != "none", warm_source=warm_source, prefilled=True,
+            ttft_ms=(now - self._submit_times[rid]) * 1e3, last_tok_t=now,
+        )
+        return True
+
+    def _bucketed_prefill(self, ids: List[int]):
+        """From-scratch B = 1 prefill (bucket 16, as JAX)."""
+        return bucketed_prefill(self.params, self.cfg, ids, self.max_len, 16, self.device)
+
+    def _append_suffix(self, caches, suffix_ids: List[int], p0: int):
+        """Chunk-prefill ``suffix_ids`` into B = 1 ``caches`` (in place) from
+        ``p0`` — the reuse path of slot admission, with smaller chunks and
+        buckets than the single-stream engine (128 and 16, as JAX)."""
+        return chunked_append(self.params, self.cfg, caches, suffix_ids, p0, 128, 16)
+
+    @staticmethod
+    def _put_entry(big: torch.Tensor, small: torch.Tensor, idx: int, name: str) -> None:
+        """Copy a B = 1 cache into lane ``idx`` of the batch, in place."""
+        if name in ("k", "v"):            # (L, B, T, KV, Dh)
+            t = min(big.shape[2], small.shape[2])
+            big[:, idx, :t] = small[:, 0, :t]
+        else:                             # kv_pos (B, T)
+            t = min(big.shape[1], small.shape[1])
+            big[idx, :t] = small[0, :t]
 
     def _alloc_pages(self, m: int, exclude: Optional[str] = None) -> Optional[List[int]]:
         """Allocate ``m`` pages, reclaiming page-budgeted LRU session
@@ -439,10 +535,25 @@ class BatchedServer:
 
     # -- slot completion -> pool write-back -----------------------------
     def _release_to_pool(self, idx: int, st: SlotState) -> None:
-        """MOVE the finished slot's pages into the session pool entry
-        (zero-copy; pages past the kept prefix are freed), so the next turn
-        of this session is suffix-only."""
+        """Register the finished slot's KV in the session pool so the next
+        turn of this session is suffix-only. Paged mode MOVES the slot's
+        pages into the pool entry (zero-copy; pages past the kept prefix are
+        freed); full-width mode copies the slot's lane out of the batch —
+        a copy, not a view: the next admission into this slot overwrites
+        the lane."""
         prefix = st.token_ids + st.generated
+        if not self.paged:
+            one = [
+                {"k": c["k"][:, idx : idx + 1].clone(), "v": c["v"][:, idx : idx + 1].clone(),
+                 "kv_pos": c["kv_pos"][idx : idx + 1]}
+                for c in self.caches
+            ]
+            self.session_pool.put(
+                st.cache_key,
+                CacheEntry(token_ids=prefix, caches=trim_cache_prefix(one, len(prefix)),
+                           source="serve"),
+            )
+            return
         pages = self.slot_pages[idx]
         keep = self.allocator.pages_for(len(prefix))
         if keep < len(pages):
@@ -461,9 +572,10 @@ class BatchedServer:
         elif self.slot_pages[idx]:
             self.allocator.decref(self.slot_pages[idx])
             self.slot_pages[idx] = []
-        # an open lane keeps riding the batched call against the scratch
-        # page until re-admitted; its kv_pos row is junk but unread
-        self._table[idx, :] = SCRATCH_PAGE
+        if self.paged:
+            # an open lane keeps riding the batched call against the scratch
+            # page until re-admitted; its kv_pos row is junk but unread
+            self._table[idx, :] = SCRATCH_PAGE
         gaps = st.gaps_ms
         self.finished.append(
             FinishedRequest(
@@ -596,20 +708,33 @@ class BatchedServer:
         for st in self.slots:
             if st is not None:
                 st.batch_size = max(st.batch_size, n_active)
-        plan = self._grow_and_plan()
-        if plan is None:
-            return  # every occupied lane is mid-prefill
-        table, tokens, pos, shared = self.decode_inputs(plan)
-        wp = plan.w * self.allocator.page_size
-        # the trimmed kv_pos is made contiguous once per step (the kernels
-        # take it contiguous), updated in place by the decode, written back
-        kv_pos = self._kv_pos[:, :wp].contiguous()
-        logits = decode_step_paged(
-            self.params, self.cfg, self.allocator.pools, table, kv_pos, tokens, pos,
-            shared,
-        )
-        if kv_pos.data_ptr() != self._kv_pos.data_ptr():
-            self._kv_pos[:, :wp] = kv_pos
+        if self.paged:
+            plan = self._grow_and_plan()
+            if plan is None:
+                return  # every occupied lane is mid-prefill
+            table, tokens, pos, shared = self.decode_inputs(plan)
+            wp = plan.w * self.allocator.page_size
+            # the trimmed kv_pos is made contiguous once per step (the
+            # kernels take it contiguous), updated in place by the decode,
+            # written back
+            kv_pos = self._kv_pos[:, :wp].contiguous()
+            logits = decode_step_paged(
+                self.params, self.cfg, self.allocator.pools, table, kv_pos, tokens, pos,
+                shared,
+            )
+            if kv_pos.data_ptr() != self._kv_pos.data_ptr():
+                self._kv_pos[:, :wp] = kv_pos
+        else:
+            # every lane decodes, an empty one into its own lane at its
+            # stale position (write_step clamps; the lane is rewritten
+            # whole at its next admission); one upload carries tokens and
+            # positions
+            b = self.n_slots
+            host = np.concatenate([self._next_tok, self._pos]).astype(np.int32)
+            dev = torch.from_numpy(host).to(self.device)
+            logits, self.caches = decode_step(
+                self.params, self.cfg, self.caches, dev[:b].view(b, 1), dev[b:]
+            )
         nxt = sample(logits[:, 0]).cpu().numpy()   # the step's one host sync
         now = time.perf_counter()
 
@@ -643,7 +768,8 @@ class BatchedServer:
             if self.slot_pages[idx]:
                 self.allocator.decref(self.slot_pages[idx])
                 self.slot_pages[idx] = []
-        self._table[:, :] = SCRATCH_PAGE
+        if self.paged:
+            self._table[:, :] = SCRATCH_PAGE
         self._prefill_fifo.clear()
         if self.session_pool is not None:
             self.session_pool.clear()
@@ -659,9 +785,10 @@ class BatchedServer:
     # -- migration warm-start -------------------------------------------
     def prime(self, cache_key: str, token_ids: List[int]) -> bool:
         """Pre-warm the shared session pool with the KV state of
-        ``token_ids`` (the batched twin of ``InferenceEngine.prime``),
-        chunk-prefilled straight into fresh pages: a later
-        ``submit(..., cache_key=...)`` admits with a suffix-only plan."""
+        ``token_ids`` (the batched twin of ``InferenceEngine.prime``): in
+        paged mode chunk-prefilled straight into fresh pages, in full-width
+        mode through a dense lane. A later ``submit(..., cache_key=...)``
+        admits suffix-only."""
         return self._prime(cache_key, token_ids, None, 0, "prime")
 
     def _prime_paged_fill(
@@ -681,7 +808,11 @@ class BatchedServer:
         have_pages: int,
     ) -> bool:
         """Install digest-verified shipped KV pages into the shared session
-        pool (the batched twin of ``InferenceEngine.install_shipped_pages``)."""
+        pool (the batched twin of ``InferenceEngine.install_shipped_pages``).
+        Paged servers only: a full-width server has no page pool to import
+        into, and the shipper falls back to token recompute."""
+        if not self.paged:
+            return False
         return self._prime(cache_key, token_ids, payloads, have_pages, "ship")
 
     def _prime(
@@ -690,12 +821,14 @@ class BatchedServer:
     ) -> bool:
         if self.session_pool is None:
             return False
-        warm, _ = prime_session_pool(
-            self.session_pool, cache_key, list(token_ids), self.max_len - 2,
-            lambda ids, entry, usable: self._prime_paged_fill(
+        paged_fill = None
+        if self.paged:
+            paged_fill = lambda ids, entry, usable: self._prime_paged_fill(  # noqa: E731
                 ids, entry, usable, shipped, have_pages
-            ),
-            source=source,
+            )
+        warm, _ = prime_session_pool(
+            self.session_pool, cache_key, list(token_ids), self.max_len, self.max_len - 2,
+            self._append_suffix, self._bucketed_prefill, paged_fill=paged_fill, source=source,
         )
         return warm
 
@@ -770,10 +903,8 @@ class BatchedLLMService:
         """A batched service on ``device`` (default ``"cuda"``; raises
         without a GPU unless ``device="cpu"``). Weights are drawn from
         ``seed`` unless ``params`` (e.g. bridged JAX weights) are given.
-        Only ``paged=True`` is ported."""
+        ``paged=False`` (the default, as in JAX) is the full-width server."""
         dev = resolve_device(device)
-        if not paged:
-            raise NotImplementedError(FULL_WIDTH)
         if params is None:
             params = init_params(cfg, seed, dev)
         pool = (
@@ -783,7 +914,7 @@ class BatchedLLMService:
         )
         server = BatchedServer(
             cfg, params, n_slots=n_slots, max_len=max_len, session_pool=pool,
-            paged=True, page_size=page_size, kv_pages=kv_pages,
+            paged=paged, page_size=page_size, kv_pages=kv_pages,
             share_prefixes=share_prefixes, prefill_chunk_tokens=prefill_chunk_tokens,
             device=dev,
         )
@@ -804,10 +935,11 @@ class BatchedLLMService:
 
     # -- KV-page shipping hooks -----------------------------------------
     def kv_ship_profile(self) -> Optional[NodeShipProfile]:
-        """Shipping constants for the cost model; None without a session
-        pool or a measured prefill constant."""
+        """Shipping constants for the cost model; None for a full-width
+        server, without a session pool or without a measured prefill
+        constant."""
         srv = self.server
-        if srv.session_pool is None or self.ship_prefill_ms_per_token <= 0:
+        if not srv.paged or srv.session_pool is None or self.ship_prefill_ms_per_token <= 0:
             return None
         return NodeShipProfile(
             page_size=srv.allocator.page_size,

@@ -1,15 +1,12 @@
 """Session-scoped KV-cache pool (beyond-paper: §4.1 one level down) — the
-port's copy of ``repro.serving.session_cache`` (framework-free). The port
-serves only the paged route, so with an allocator bound its entries are
-always paged: a dense entry put into a paged pool (the JAX package's
-dense-route store/materialize) raises NotImplementedError until the dense
-route is ported (ROADMAP, Queue 1 item 6).
+port's copy of ``repro.serving.session_cache`` (framework-free: it holds
+the engines' caches and page ids, and calls the allocator's moves).
 
 DisCEdge stores session context *pre-tokenized* so the request path never
 re-tokenizes history; this pool extends the same idea to the KV state: the
 decode caches produced while serving a turn are kept, keyed by the session's
 context key, so the next turn only prefills its *new* tokens
-(:func:`repro.models.prefill_append`) instead of re-running the full prefill
+(:func:`repro_torch.models.prefill_append`) instead of re-running the full prefill
 over the stored history — per-turn prefill cost drops from O(history) to
 O(new tokens).
 
@@ -21,7 +18,7 @@ entry and falls back to a from-scratch prefill.
 
 Entries carry their provenance (``source``): ``"serve"`` for caches left
 behind by a turn served on this node, ``"prime"`` for caches installed by
-the migration warm-start hook (:meth:`repro.serving.engine.InferenceEngine.
+the migration warm-start hook (:meth:`repro_torch.serving.engine.InferenceEngine.
 prime` — the replication-arrival path that pre-warms a keygroup peer before
 a roaming client's first turn lands there). A prime that *extends* an
 existing entry keeps that entry's provenance and LRU position: warm-start
@@ -30,12 +27,14 @@ docs/architecture.md, "Migration warm-start", for the full request
 lifecycle.
 
 With an attached :class:`~repro_torch.serving.paged_kv.PagedKVAllocator`
-(``allocator``), entries are stored *paged*: ``put`` adopts a paged
-entry's pages zero-copy (the engine's write-back), eviction is
-page-budgeted rather than entry-counted (``reclaim``), and an entry costs
-``ceil(tokens / page_size)`` pages instead of a full ``max_len``-width
-lane — the many-tenant memory win (docs/architecture.md, "Paged session
-KV").
+(``allocator``), entries are stored *paged*: ``put`` pages a dense entry
+into pool-owned fixed-size pages (or adopts an already-paged entry's pages
+zero-copy — the batched server's write-back path), eviction is
+page-budgeted rather than entry-counted (``reclaim``), and hits are
+materialized back to a dense view on demand (``materialize``). An entry
+then costs ``ceil(tokens / page_size)`` pages instead of a full
+``max_len``-width lane — the many-tenant memory win (docs/architecture.md,
+"Paged session KV").
 """
 
 from __future__ import annotations
@@ -109,7 +108,8 @@ class SessionCachePool:
     rejects: int = 0  # paged inserts dropped for lack of page budget
     # cross-session shared-prefix accounting: admissions that reused another
     # session's resident pages via the content-hash index (bumped by the
-    # engine's admission), and the tokens they did not have to re-prefill
+    # serving paths that consume match_shared_prefix), and the tokens they
+    # did not have to re-prefill / re-store
     shared_hits: int = 0
     shared_tokens: int = 0
     allocator: Optional["PagedKVAllocator"] = None
@@ -132,9 +132,8 @@ class SessionCachePool:
         last-position logits. A *divergent* prefix (stale/edited history)
         invalidates the entry; incoming ids that are a strict prefix of the
         cached tokens (client retry/resend) still reuse — the caller must
-        trim kv_pos to ``usable`` whenever ``usable < entry.pos`` (the paged
-        engine starts its kv_pos at ``usable`` and copies a partial tail
-        page)."""
+        trim kv_pos to ``usable`` whenever ``usable < entry.pos`` (paged
+        entries: ``materialize(entry, usable, width)`` does both)."""
         entry = self._entries.get(key)
         if entry is None:
             self.misses += 1
@@ -156,10 +155,26 @@ class SessionCachePool:
         self.hits += 1
         return entry, usable
 
+    def match_shared_prefix(self, token_ids: Sequence[int]) -> Tuple[List[int], int]:
+        """Cross-session admission match: the longest resident full-page run
+        whose content-hash chain matches the head of ``token_ids``, over
+        *every* session's pages (docs/architecture.md, "Cross-session
+        shared-prefix paging"). Returns ``(pages, n_tokens)`` with
+        ``n_tokens == len(pages) * page_size``; at least one incoming token
+        is always left to (re)compute so the caller gets last-position
+        logits. No references are taken and no LRU/hit state is touched —
+        callers incref (batched path) or gather immediately (single-stream
+        path) and bump ``shared_hits``/``shared_tokens`` on actual use."""
+        if self.allocator is None or not self.allocator.share_prefixes:
+            return [], 0
+        pages = self.allocator.match_prefix(token_ids, len(token_ids) - 1)
+        return pages, len(pages) * self.allocator.page_size
+
     def put(self, key: str, entry: CacheEntry, low_priority: bool = False) -> None:
-        """Insert/replace an entry. With an ``allocator``, a paged entry —
-        the engine's finished write-back — is adopted zero-copy: the pool
-        takes over its page refs.
+        """Insert/replace an entry. With an ``allocator``, a dense entry is
+        paged on the way in (an already-paged entry — the batched server's
+        finished-slot write-back — is adopted zero-copy: the pool takes over
+        its page refs).
 
         ``low_priority`` (the warm-start prime path) is best-effort storage:
         a *fresh* insert goes to the LRU end instead of the MRU end, and in
@@ -175,11 +190,41 @@ class SessionCachePool:
             self._release(entry)  # adopted page refs must not leak
             return
         if self.allocator is not None and not entry.paged:
-            raise NotImplementedError(
-                "storing a dense cache entry into a paged pool is the dense "
-                "route (ROADMAP, Queue 1 item 6), not ported yet"
+            assert entry.caches is not None
+            # Pin any cross-session prefix match BEFORE reclaiming: eviction
+            # of the donor entry must not release pages we are about to
+            # share (incref-before-reclaim ordering). The pin also keeps the
+            # index mappings alive, so store() below re-finds the same run.
+            shared = self.allocator.match_prefix(entry.token_ids, entry.pos)
+            if shared:
+                self.allocator.incref(shared)
+            needed = self.allocator.pages_for(entry.pos) - len(shared)
+            if self.allocator.n_free < needed and not low_priority:
+                old = self._entries.get(key)
+                if old is not None and old.paged:
+                    # same-key replacement under pressure: the old prefix is
+                    # superseded by this fresher entry, so drop its pool
+                    # refs first — a growing session reuses its own pages
+                    # instead of evicting every other tenant (pages shared
+                    # with a live slot survive via the slot's refs; if the
+                    # store still fails the key is simply gone, counted in
+                    # rejects)
+                    self._release(old)
+                    del self._entries[key]
+                self.reclaim(needed, exclude=key)
+            pages = (
+                self.allocator.store(entry.caches, entry.pos, entry.token_ids)
+                if self.allocator.n_free >= needed else None
             )
-        if self.allocator is not None:
+            if shared:
+                self.allocator.decref(shared)  # store took its own refs
+            if pages is None:
+                self.rejects += 1
+                return  # best effort: the existing entry (if any) stays
+            entry = CacheEntry(
+                token_ids=entry.token_ids, source=entry.source, pages=pages
+            )
+        elif self.allocator is not None and entry.paged:
             # adopted write-back pages are at rest now — index their full
             # pages so later admissions of the same prefix can share them
             # (no-op for pages that came from the index in the first place)
@@ -248,6 +293,12 @@ class SessionCachePool:
             self._release(self._entries.pop(victim_key))
             self.evictions += 1
         return True
+
+    def materialize(self, entry: CacheEntry, n_valid: int, width: int) -> List[Dict]:
+        """Dense B=1 cache view of a paged entry with kv_pos valid on
+        [0, n_valid) — fresh buffers, so compute may write them in place."""
+        assert entry.paged and self.allocator is not None
+        return self.allocator.gather(entry.pages, n_valid, width)
 
     @property
     def pages_in_use(self) -> int:

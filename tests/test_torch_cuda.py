@@ -210,3 +210,92 @@ def test_cascade_run_clamps_to_table_width(dev):
     want = paged_attention_ref(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(fused, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4 (flash attention) and K5 (flash decode) on linear caches
+# ---------------------------------------------------------------------------
+
+def _linear(dev, B, S, T, H, KV, Dh, dtype, p0s, lens, seed=0):
+    """Queries at positions p0 + [0, S) against a T-slot cache whose slot t
+    holds position t, valid below p0 + len (the dense route's layout)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    p0 = torch.tensor(p0s, dtype=torch.int32, device=dev)[:, None]
+    q_pos = p0 + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    slot = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+    end = p0 + torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+    valid = slot < end
+    kv_pos = torch.where(valid, slot, torch.full_like(slot, -1)).contiguous()
+    return q, k, v, q_pos, kv_pos, valid
+
+
+def _read_rows(q_pos, kv_pos, valid, window):
+    """(B, S) rows with at least one unmasked key: the only rows compared."""
+    m = (kv_pos[:, None, :] <= q_pos[:, :, None]) & valid[:, None, :]
+    if window > 0:
+        m &= q_pos[:, :, None] - kv_pos[:, None, :] < window
+    return m.any(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
+def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
+    """A full prefill (S = T, ragged true_len) and appends whose p0 is not
+    a multiple of the key tile; S and T not multiples of the tiles."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    for S, T, p0s, lens in ((150, 150, (0, 0, 0), (150, 97, 1)),
+                            (70, 300, (0, 5, 130), (70, 33, 1))):
+        args = _linear(dev, 3, S, T, H, KV, Dh, dtype, p0s, lens)
+        before = flash_attention.launches
+        out = flash_attention(*args, window=window, softcap=softcap)
+        assert flash_attention.launches == before + 1
+        want = flash_attention_ref(*args, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        rows = _read_rows(args[3], args[4], args[5], window)
+        torch.testing.assert_close(out[rows].float(), want[rows].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
+def test_decode_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
+    """One query per lane at ragged positions (1, a tile boundary, mid-tile,
+    the last slot) against T = 600 slots."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    lens = (1, 128, 333, 600)
+    args = _linear(dev, 4, 1, 600, H, KV, Dh, dtype, [n - 1 for n in lens], [1] * 4)
+    before = decode_attention.launches
+    out = decode_attention(*args, window=window, softcap=softcap)
+    assert decode_attention.launches == before + 1
+    want = decode_attention_ref(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_decode_kernel_reads_kv_pos(dev):
+    """K5 masks by each slot's kv_pos, not by its index: a permuted cache
+    (slot != position, as a ring would hold) gives the same output as the
+    ordered one."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q, k, v, q_pos, kv_pos, valid = _linear(dev, 2, 1, 400, 8, 2, 64, torch.float32,
+                                            (250, 399), (1, 1))
+    perm = torch.randperm(400, device=dev)
+    out = decode_attention(q, k, v, q_pos, kv_pos, valid)
+    shuffled = decode_attention(q, k[:, perm].contiguous(), v[:, perm].contiguous(), q_pos,
+                                kv_pos[:, perm].contiguous(), valid[:, perm].contiguous())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, shuffled, rtol=2e-5, atol=2e-5)

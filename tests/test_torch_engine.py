@@ -23,7 +23,7 @@ from repro.models import init_params as jax_init_params
 from repro.serving import InferenceEngine as JaxEngine
 from repro.serving import JaxLLMService
 from repro_torch.models import ModelConfig, params_from_numpy
-from repro_torch.serving import InferenceEngine, PagePoolExhausted, TorchLLMService
+from repro_torch.serving import InferenceEngine, TorchLLMService
 
 MAX_LEN, PS, KV_PAGES = 256, 16, 64
 
@@ -89,13 +89,21 @@ def test_decode_to_full_table_width(tiny_dense_cfg):
 
 
 def test_page_exhaustion_raises(tiny_dense_cfg):
-    """Where JAX falls back to the dense route, the port raises."""
+    """Where the pool cannot give a keyed request its pages, the engine
+    leaves the paged route for the dense one, as JAX does, and counts it
+    in ``paged_fallbacks``; a keyless request takes the dense route
+    without a fallback. Tokens and accounting equal JAX's."""
+    jeng = JaxEngine.create(tiny_dense_cfg, seed=0, max_len=MAX_LEN, page_size=PS, kv_pages=3)
     tcfg = _tcfg(tiny_dense_cfg)
-    eng = InferenceEngine.create(tcfg, max_len=MAX_LEN, page_size=PS, kv_pages=3, device="cpu")
-    with pytest.raises(PagePoolExhausted):
-        eng.generate_ex(list(range(1, 60)), max_new_tokens=4, cache_key="k")
-    with pytest.raises(NotImplementedError):
-        eng.generate_ex(list(range(1, 10)), max_new_tokens=4)   # keyless: dense route
+    eng = InferenceEngine.create(tcfg, max_len=MAX_LEN, page_size=PS, kv_pages=3, device="cpu",
+                                 params=_torch_params(jeng.params, tcfg))
+    for ids, key in ((list(range(1, 60)), "k"), (list(range(1, 10)), None)):
+        j = jeng.generate_ex(ids, max_new_tokens=4, cache_key=key)
+        t = eng.generate_ex(ids, max_new_tokens=4, cache_key=key)
+        for f in FIELDS:
+            assert getattr(t, f) == getattr(j, f), (key, f)
+        assert eng.paged_fallbacks == jeng.paged_fallbacks == 1
+    assert eng.session_pool.stats() == jeng.session_pool.stats()
 
 
 def _roam(cluster):

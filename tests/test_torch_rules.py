@@ -36,6 +36,9 @@ _ISOLATED = textwrap.dedent(
     names = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     ]
+    for must in ("repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.decode_attention.ops"):
+        assert must in names, must
     for n in names:
         importlib.import_module(n)
     importlib.import_module("chip_smoke")
@@ -54,7 +57,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+    # every module was walked, the dense route's kernel packages included
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -74,6 +78,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedLLMService.create("m", cfg, paged=True, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchLLMService.create("m", cfg, kv_reuse=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"embed": {}, "groups": ()}, cfg)
@@ -86,19 +92,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_full_width_batched_server_is_not_ported():
-    """The full-width batched server (paged=False) is the dense route: it
-    raises instead of running something else."""
+    """The full-width batched server (paged=False) is the default of
+    BatchedLLMService, as in JAX: without a device it runs on the card, so
+    it raises here (no GPU); with device="cpu" it serves."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import PAPER_QWEN15_0_5B
     from repro_torch.serving import BatchedLLMService
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        BatchedLLMService.create("m", PAPER_QWEN15_0_5B.reduced(), device="cpu")
+    cfg = PAPER_QWEN15_0_5B.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedLLMService.create("m", cfg)
+    svc = BatchedLLMService.create("m", cfg, max_len=64, device="cpu")
+    assert not svc.server.paged and svc.server.allocator is None
+    assert svc.server.caches[0]["k"].device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors and launches
     its kernel only for CUDA tensors; any other device raises."""
     from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention, shared_prefix
 
     meta = dict(device="meta")
@@ -116,3 +131,10 @@ def test_kernel_wrappers_refuse_other_devices():
                                   torch.empty(2, 8, 2, 16, **meta),
                                   torch.empty(2, 8, 2, 16, **meta), torch.empty(1, 1, **i32),
                                   torch.empty(1, **i32), torch.empty(1, **i32))
+    kv = [torch.empty(1, 8, 2, 16, **meta) for _ in range(2)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(torch.empty(1, 4, 4, 16, **meta), *kv, torch.empty(1, 4, **i32),
+                        torch.empty(1, 8, **i32), torch.empty(1, 8, **i32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention(torch.empty(1, 1, 4, 16, **meta), *kv, torch.empty(1, 1, **i32),
+                         torch.empty(1, 8, **i32), torch.empty(1, 8, **i32))

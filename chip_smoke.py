@@ -21,7 +21,7 @@ non-zero):
 5. K4       — flash attention kernel vs its plain version in bf16 and in
                f32 (TF32 off): full prefills with ragged true_len and appends
                whose p0 is no multiple of the key tile, MHA/GQA/MQA, d_head
-               64 and 128, window x softcap; then timed at the dense route's
+               64, 112 (Zamba2) and 128, window x softcap; then timed at the dense route's
                shapes (a full prefill S = T = 1024; a 256-token append at p0
                1024 against 2048 slots);
 6. K5       — flash decode kernel vs its plain version the same way at
@@ -68,7 +68,21 @@ non-zero):
                install them into a second (bit-exact round trip, next turn
                a "pages" warm start prefilling only its suffix), and prime
                a third from token ids (a "tokens" warm start);
-14. result  — JSON lines with every kernel's numbers (K1-K5), the card's
+14. K6      — the SSD chunk kernel vs its plain version (f32, all three
+               outputs) at Mamba2's (H 64, N 128) and Zamba2's (H 112,
+               N 64) full-width 1024-token shapes and a B = 2 ragged case,
+               the wrapper (kernel + inter-chunk chain) vs the plain
+               chunked SSD; then timed at both shapes;
+15. mamba2-1.3b — the full-width Mamba2 (random bf16 weights from a seed)
+               through TorchLLMService with bucket 128: 3 sessions x 2
+               turns of 256-1024 context tokens, every turn a full prefill
+               (no session reuse for SSMs); K6 must launch 48 times per
+               prefill; a 1024-token turn teacher-forced through the kernel
+               and plain paths; prefill + 8 decode steps vs forward_full; a
+               profiled prefill and decode step;
+16. zamba2-7b — the same for the full-width Zamba2 hybrid: K6 81 times and
+               K4 13 times per prefill, K5 13 times per decode step;
+17. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
 
@@ -107,6 +121,17 @@ PLAIN_TOL = 0.15     # cascade vs the plain path: LOGIT_TOL, the bound for
 K45_TOL = 2e-2       # K4/K5 in bf16: as K1_TOL
 K45_F32_TOL = 1e-4   # K4/K5 in f32 (TF32 off): the same f32 products summed
                      # in another order over up to 2048 keys
+K6_TOL = 1e-4        # K6 in f32 (TF32 off): |kernel - plain| <= 1e-4 (1 + |plain|),
+                     # JAX's own SSD tolerance; sums over <= 128 rows or state
+                     # columns taken in another order
+SSM_LOGIT_REL = 0.6  # per-step logits of Mamba2 (48) / Zamba2 (81 + 13) bf16
+                     # layers, kernel vs plain path and prefill + decode vs
+                     # forward_full: max |diff| <= 0.6 x the std of the plain
+                     # logits. Set before the first run on the card: CPU runs of
+                     # both models at d_model 512 in bf16 gave 0.12-0.33 x std
+                     # (bf16 residuals and a bf16-stored SSM state; PERF.md)
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 tensor-core peak (f32 operands)
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -532,6 +557,7 @@ def phase_k4(dev, n_layers: int) -> dict:
         ("append mha p0 1024", (1024,), (256,), 256, 2048, 16, 16, 64, 0, 0.0),
         ("append mqa p0 1000", (1000, 37), (256, 100), 256, 2048, 16, 1, 64, 0, 0.0),
         ("append gqa d128 window x softcap", (517,), (200,), 256, 2048, 8, 2, 128, 300, 50.0),
+        ("prefill zamba2 mha d112 ragged", (0, 0), (1024, 777), 1024, 1024, 32, 32, 112, 0, 0.0),
     ]
     err = _check_linear("K4", ops.flash_attention, ref.flash_attention_ref, cases, gen, dev)
 
@@ -586,6 +612,7 @@ def phase_k5(dev, n_layers: int) -> dict:
         ("B=8 gqa d128 window x softcap", tuple(n - 1 for n in lens8), (1,) * 8, 1, T,
          16, 4, 128, 300, 30.0),
         ("B=8 mqa", tuple(n - 1 for n in lens8), (1,) * 8, 1, T, 16, 1, 64, 0, 0.0),
+        ("B=1 zamba2 mha d112", (1100,), (1,), 1, T, 32, 32, 112, 0, 0.0),
     ]
     err = _check_linear("K5", ops.decode_attention, ref.decode_attention_ref, cases, gen, dev)
 
@@ -1047,8 +1074,6 @@ def phase_profile(svc, last_turn, dev) -> dict:
     host clock without the profiler, then traced with torch.profiler for
     the device busy time and the top kernels. Diagnostic only: a trace with
     no device time is reported as not measured, not as a failure."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import PagedPrefiller
 
     cfg, params = svc.engine.cfg, svc.engine.params
@@ -1064,29 +1089,37 @@ def phase_profile(svc, last_turn, dev) -> dict:
                         len(steps)),
         "prefill_chunk_256": (lambda: pref.run_chunk(pages, ids[p0:], p0), 1),
     }
-    report = {}
-    for name, (fn, per) in work.items():
-        fn()
-        torch.cuda.synchronize()
+    return {name: profile_work(name, fn, per) for name, (fn, per) in work.items()}
+
+
+def profile_work(name, fn, per) -> dict:
+    """Host wall of ``fn`` (after one warm-up run), then one run traced by
+    torch.profiler: device busy time and idle share per unit of work
+    (``fn`` does ``per`` units), and the top device kernels. A trace with
+    no device time is reported as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / per
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / per
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            traced_wall = (time.perf_counter() - t0) * 1e3 / per
-        busy, rows = _device_ms(prof)
-        busy /= per
-        entry = {"wall_ms": wall, "traced_wall_ms": traced_wall,
-                 "device_busy_ms": busy if busy > 0 else "not measured",
-                 # against the untraced wall: tracing slows the host, not the kernels
-                 "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
-                 "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]]}
-        report[name] = entry
-        log(f"profile {name}: {json.dumps(entry)}")
-    return report
+        traced_wall = (time.perf_counter() - t0) * 1e3 / per
+    busy, rows = _device_ms(prof)
+    busy /= per
+    entry = {"wall_ms": wall, "traced_wall_ms": traced_wall,
+             "device_busy_ms": busy if busy > 0 else "not measured",
+             # against the untraced wall: tracing slows the host, not the kernels
+             "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
+             "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]]}
+    log(f"profile {name}: {json.dumps(entry)}")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -1143,7 +1176,6 @@ def dense_teacher_forced(cfg, params, ids, forced, dev, split=None):
 def phase_dense(params, dev) -> tuple:
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import PAPER_QWEN15_0_5B
     from repro_torch.models import decode_step, prefill_append
     from repro_torch.serving import BatchedLLMService, TorchLLMService
@@ -1267,28 +1299,9 @@ def phase_dense(params, dev) -> tuple:
     def append256():
         prefill_append(params, cfg, trimmed, app_toks, p0)
 
-    report = {}
-    for name, fn, per in (("dense_decode_step", decode8, len(steps)),
-                          ("dense_append_256", append256, 1)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / per
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            traced = (time.perf_counter() - t0) * 1e3 / per
-        busy, rows = _device_ms(prof)
-        busy /= per
-        entry = {"wall_ms": wall, "traced_wall_ms": traced,
-                 "device_busy_ms": busy if busy > 0 else "not measured",
-                 "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
-                 "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]]}
-        report[name] = entry
-        log(f"profile {name}: {json.dumps(entry)}")
+    report = {name: profile_work(name, fn, per)
+              for name, fn, per in (("dense_decode_step", decode8, len(steps)),
+                                    ("dense_append_256", append256, 1))}
     del caches, trimmed
     torch.cuda.empty_cache()
 
@@ -1362,6 +1375,257 @@ def phase_dense(params, dev) -> tuple:
     total = {k: sum(l[k] for l in (l_keyed, l_keyless, l_fallback, l_batched))
              for k in l_keyed}
     return summary, total
+
+
+# ---------------------------------------------------------------------------
+# K6 and the SSM / hybrid models (dense route only: no session reuse)
+# ---------------------------------------------------------------------------
+
+def _ssd_case(gen, B, L, H, P, N, dev, ragged=None):
+    """Inputs shaped like a Mamba2 mixer's at the SSD: x and B/C after the
+    conv's SiLU, dt after softplus, A = -exp(A_log) of the init's
+    linspace(1, 16). ``ragged`` gives each lane's real length: rows past it
+    carry a padded prompt's inputs (zero tokens' small activations)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = 0.5 * torch.randn(B, L, H, P, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(B, L, H, generator=gen, device=dev) - 1.0)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bv = 0.5 * torch.randn(B, L, 1, N, generator=gen, device=dev)
+    Cv = 0.5 * torch.randn(B, L, 1, N, generator=gen, device=dev)
+    if ragged is not None:
+        for b, n in enumerate(ragged):
+            for t in (x, Bv, Cv):
+                t[b, n:] *= 0.01
+    return x, dt, A, Bv, Cv
+
+
+def _ssd_bound(B, L, H, P, N, Q):
+    """Bytes every input read once and every output written once (f32);
+    the TPU kernel's products per (lane, chunk, head): CB (Q x Q x N), W x
+    (Q x Q x P), Bwᵀ x (Q x N x P). Returns (bytes, flops)."""
+    nc = L // Q
+    nbytes = 4 * (2 * B * L * H * P + 2 * B * L * H + H + 2 * B * L * N + B * nc * H * N * P)
+    flops = B * nc * H * 2 * Q * (Q * N + Q * P + N * P)
+    return nbytes, flops
+
+
+def phase_k6(dev) -> dict:
+    """K6 against its plain version (all three outputs, f32, TF32 off) at
+    both models' full-width shapes and a B = 2 ragged case, the wrapper
+    (kernel + chain) against the plain chunked SSD, then K6 timed at both
+    shapes with inputs cycled past L2."""
+    import torch
+    from repro_torch.kernels.ssd import ops, ref
+    from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+    from repro_torch.models.ssm import ssd_reference
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    Q = 128
+    # (label, B, L, H, P, N, real lengths)
+    cases = [("mamba2", 1, 1024, 64, 64, 128, None), ("zamba2", 1, 1024, 112, 64, 64, None),
+             ("B=2 ragged", 2, 512, 64, 64, 128, (512, 300))]
+    err = 0.0
+    for label, B, L, H, P, N, ragged in cases:
+        x, dt, A, Bv, Cv = _ssd_case(gen, B, L, H, P, N, dev, ragged)
+        args = (x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous())
+        got = ssd_chunk_cuda(*args, Q)
+        want = ref.ssd_chunk_ref(*args, Q)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("y_intra", "states", "dA_cs"), got, want):
+            assert torch.isfinite(g).all(), (label, name)
+            e = (g - w).abs().max().item()
+            excess = ((g - w).abs() - K6_TOL * (1 + w.abs())).max().item()
+            log(f"K6 {label} {name}: max_abs_err {e:.3e}, max |ref| {w.abs().max().item():.3e} "
+                f"(bound {K6_TOL} x (1 + |ref|))")
+            assert excess <= 0, f"K6 {label} {name}: exceeds {K6_TOL} x (1 + |ref|) by {excess}"
+            err = max(err, e)
+        y, f = ops.ssd(x, dt, A, Bv, Cv, Q)
+        wy, wf = ssd_reference(x, dt, A, Bv, Cv, Q)
+        torch.cuda.synchronize()
+        for name, g, w in (("ssd y", y, wy), ("ssd final state", f, wf)):
+            e = ((g - w).abs() - K6_TOL * (1 + w.abs())).max().item()
+            log(f"K6 {label} {name} (kernel + chain vs plain): max_abs_err "
+                f"{(g - w).abs().max().item():.3e}")
+            assert e <= 0, f"K6 {label} {name}: exceeds the bound by {e}"
+
+    out = {"name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+           "replaces": "src/repro/kernels/ssd/kernel.py:94", "max_abs_err": err,
+           "library_ms": None}
+    for label, B, L, H, P, N, _ in cases[:2]:
+        sets = []
+        for _ in range(6):       # each call moves ~50 MB: six sets are far past L2
+            x, dt, A, Bv, Cv = _ssd_case(gen, B, L, H, P, N, dev)
+            sets.append((x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous()))
+        kernel_ms = device_time_ms([lambda a=a: ssd_chunk_cuda(*a, Q) for a in sets], iters=24)
+        plain_ms = device_time_ms([lambda a=a: ref.ssd_chunk_ref(*a, Q) for a in sets], iters=24)
+        nbytes, flops = _ssd_bound(B, L, H, P, N, Q)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / TF32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        f32_fma_ms = flops / F32_FLOPS_PER_S * 1e3
+        log(f"K6 {label} shape (B {B}, L {L}, H {H}, P {P}, N {N}, Q {Q}): kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms none bound_ms {bound_ms:.6f} "
+            f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the TF32 peak; "
+            f"{f32_fma_ms:.5f} ms at the f32 FMA peak)")
+        stats = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     mbytes=nbytes / 1e6, gflop=flops / 1e9, f32_fma_bound_ms=f32_fma_ms)
+        if label == "mamba2":
+            out.update(stats)
+        else:
+            out.update({f"zamba2_{k}": v for k, v in stats.items()})
+    return out
+
+
+def _ssm_counters():
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return dict(_dense_counters(), ssd=ssd_ops.ssd)
+
+
+def _ssm_teacher_forced(cfg, params, ids, forced, dev):
+    """Unpadded prefill of ``ids`` (a chunk multiple), then ``forced``
+    decoded one by one; every step's logits, f32."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches, pos = prefill(params, cfg, torch.tensor([ids], device=dev), len(ids) + 64)
+    out = [logits[0]]
+    for t in forced:
+        lg, caches = decode_step(params, cfg, caches, torch.tensor([[t]], device=dev), pos)
+        pos = pos + 1
+        out.append(lg[0, 0])
+    return torch.stack(out).float()
+
+
+def phase_ssm_model(dev, cfg, per_prefill: dict, per_decode: dict) -> dict:
+    """One SSM-family model at full width (bf16, random weights from seed
+    0) through ``TorchLLMService`` on an engine with ``bucket=128`` (a
+    multiple of the SSD chunk): 3 sessions x 2 turns of 256-1024 context
+    tokens and 32 new tokens, every turn a full prefill. The kernel launches
+    of that run must be ``per_prefill`` x prefills plus ``per_decode`` x
+    decode steps. Then a 1024-token turn teacher-forced through the kernel
+    and the plain path, prefill + 8 decode steps held to ``forward_full``
+    (both bounded by SSM_LOGIT_REL x the plain logits' std), and a profiled
+    1024-token prefill and 8 decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward_full, prefill
+    from repro_torch.serving import InferenceEngine, TorchLLMService
+    from repro_torch.tokenizer import assistant_header, encode_turn, get_tokenizer
+
+    name = cfg.name
+    cfg = cfg.replace(attn_impl="cuda")
+    t0 = time.perf_counter()
+    engine = InferenceEngine.create(cfg, seed=0, max_len=2048, bucket=128, device=dev)
+    svc = TorchLLMService(model=name, engine=engine,
+                          tokenizer=get_tokenizer(cfg.vocab_size, seed=0, name=name))
+    torch.cuda.synchronize()
+    params = engine.params
+    assert engine.session_pool is None
+    log(f"{name}: service built in {time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, bf16 weights "
+        f"{sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} GB)")
+    tok = svc.tokenizer
+    rng = np.random.default_rng(0)
+
+    def prompt(turn: int, n_doc: int):
+        ids = encode_turn(tok, "user", f"turn {turn}: summarise the attached log")
+        doc = rng.integers(300, cfg.vocab_size, size=n_doc).tolist()
+        return ids[:-2] + doc + ids[-2:] + assistant_header(tok)
+
+    svc.completion(rng.integers(300, 5000, size=100).tolist(), prompt(0, 16), 4)   # warm-up
+    torch.cuda.synchronize()
+
+    sessions = {f"s{i}": rng.integers(300, cfg.vocab_size, size=256 * (i + 1)).tolist()
+                for i in range(3)}
+    turns, decode_steps = [], 0
+    counters = _ssm_counters()
+    for c in counters.values():
+        c.launches = 0
+    for turn in range(2):
+        for key, ctx in sessions.items():
+            p = prompt(turn + 1, 40)
+            r = svc.completion(ctx, p, 32, cache_key=key)
+            n_in = len(ctx) + len(p)
+            assert not r.cache_hit and r.prefill_tokens == n_in, (key, turn, r.prefill_tokens)
+            assert 0 < len(r.token_ids) <= 32, r.token_ids
+            # the engine decodes whole windows of 8 before its stop scan
+            decode_steps += min(32, 8 * -(-len(r.token_ids) // 8))
+            turns.append({"session": key, "turn": turn + 1, "input_tokens": n_in,
+                          "ttft_ms": r.ttft_ms, "decode_p50_ms": r.decode_p50_ms,
+                          "inference_ms": r.inference_ms})
+            log(f"{name}: {key} turn {turn + 1}: input {n_in} (bucket "
+                f"{-(-n_in // 128) * 128}) ttft_ms {r.ttft_ms:.3f} decode_p50_ms/token "
+                f"{r.decode_p50_ms:.3f} generated {len(r.token_ids)}")
+            sessions[key] = ctx + p + r.token_ids
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    n_prefills = len(turns)
+    want = {k: per_prefill.get(k, 0) * n_prefills + per_decode.get(k, 0) * decode_steps
+            for k in counters}
+    log(f"{name}: kernel launches {launches} over {n_prefills} prefills and {decode_steps} "
+        f"decode steps (expected {want})")
+    assert launches == want, (launches, want)
+
+    # teacher-forced: a 1024-token turn (a chunk multiple: no padding) and
+    # 16 forced tokens through the kernel path and the plain path
+    seq = sessions["s2"]                   # its history, filled up to 1040 tokens
+    seq = seq + rng.integers(300, cfg.vocab_size, size=max(0, 1040 - len(seq))).tolist()
+    ids, forced = seq[:1024], seq[1024:1040]
+    kern = _ssm_teacher_forced(cfg, params, ids, forced, dev)
+    plain = _ssm_teacher_forced(cfg.replace(attn_impl="reference"), params, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert kern.shape == plain.shape == (17, cfg.vocab_size), kern.shape
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    diff = (kern - plain).abs().max().item()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    tol = SSM_LOGIT_REL * plain.std().item()
+    log(f"{name} equivalence: teacher-forced 1024 + 16 tokens: max |logit diff| kernel vs "
+        f"plain {diff:.4e} (bound {tol:.4f} = {SSM_LOGIT_REL} x logit std), argmax agreement "
+        f"{agree:.3f}")
+    assert diff <= tol, f"{name}: logits differ by {diff} > {tol}"
+
+    # prefill of 896 tokens + 8 decode steps vs forward_full over 1024: the
+    # logits at positions 895..903 (causal: later tokens do not reach them)
+    step_logits = _ssm_teacher_forced(cfg, params, ids[:896], ids[896:904], dev)[:9]
+    full, _ = forward_full(params, cfg, torch.tensor([ids], device=dev))
+    fdiff = (step_logits - full[0, 895:904].float()).abs().max().item()
+    fagree = (step_logits.argmax(-1) == full[0, 895:904].argmax(-1)).float().mean().item()
+    log(f"{name}: prefill 896 + 8 decode steps vs forward_full: max |logit diff| {fdiff:.4e} "
+        f"(bound {tol:.4f}), argmax agreement {fagree:.3f}")
+    assert fdiff <= tol, f"{name}: decode vs forward_full differ by {fdiff} > {tol}"
+    del full
+
+    # where the time goes: a 1024-token prefill, and 8 decode steps from it
+    toks = torch.tensor([ids], device=dev)
+    _, caches, pos = prefill(params, cfg, toks, 2048)
+
+    def decode8():
+        q = pos
+        for t in forced[:8]:
+            decode_step(params, cfg, caches, torch.tensor([[t]], device=dev), q)
+            q = q + 1
+
+    report = {f"{name}_prefill_1024": profile_work(f"{name}_prefill_1024",
+                                                   lambda: prefill(params, cfg, toks, 2048), 1),
+              f"{name}_decode_step": profile_work(f"{name}_decode_step", decode8, 8)}
+    summary = {
+        "ttft_ms_p50": float(np.percentile([t["ttft_ms"] for t in turns], 50)),
+        "ttft_ms_max": max(t["ttft_ms"] for t in turns),
+        "decode_ms_per_token_p50": float(np.percentile([t["decode_p50_ms"] for t in turns], 50)),
+        "inputs": [t["input_tokens"] for t in turns],
+        "max_logit_diff": diff, "logit_bound": tol, "argmax_agreement": agree,
+        "decode_vs_forward_full_max_logit_diff": fdiff, "launches": launches,
+        "prefills": n_prefills, "decode_steps": decode_steps,
+        "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms", "device_idle_share")}
+                    for k, v in report.items()},
+    }
+    log(f"{name}: summary {json.dumps(summary)}")
+    del svc, engine, params, caches
+    torch.cuda.empty_cache()
+    return summary
 
 
 def _dense_prefilled(cfg, params, ids, dev):
@@ -1444,6 +1708,18 @@ def main() -> int:
         f"{summary['decode_ms_per_token_p50']:.3f} ms per B = 1 token "
         f"({1e3 / summary['decode_ms_per_token_p50']:.2f} tokens/s)")
     migration = phase_migration(bsvc.server.params, dev)
+    del bsvc
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import MAMBA2_1_3B, ZAMBA2_7B
+
+    k6 = phase_k6(dev)
+    ssm = phase_ssm_model(dev, MAMBA2_1_3B, {"ssd": MAMBA2_1_3B.n_layers}, {})
+    n_shared = ZAMBA2_7B.n_layers // ZAMBA2_7B.shared_attn_period
+    zamba = phase_ssm_model(dev, ZAMBA2_7B,
+                            {"ssd": ZAMBA2_7B.n_layers, "flash_attention": n_shared},
+                            {"decode_attention": n_shared})
+    k6["launches"] = ssm["launches"]["ssd"] + zamba["launches"]["ssd"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1454,7 +1730,9 @@ def main() -> int:
     print(json.dumps({"dense_path": dsummary, "k4_extra": {
         k: v for k, v in k4.items() if k not in keys}, "k5_extra": {
         k: v for k, v in k5.items() if k not in keys}}))
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5)]}))
+    print(json.dumps({"ssm_path": ssm, "zamba_path": zamba, "k6_extra": {
+        k: v for k, v in k6.items() if k not in keys}}))
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

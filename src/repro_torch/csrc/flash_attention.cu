@@ -239,6 +239,7 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(112)  // Zamba2's shared attention block
     REPRO_FLASH_CASE(128)
     default:
       return cudaErrorInvalidValue;

@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
             lib.repro_flash_attention.restype = i
             lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 6 + [f, f, i, vp]
             lib.repro_decode_attention.restype = i
+            lib.repro_ssd_chunk.argtypes = [vp] * 8 + [i] * 6 + [vp]
+            lib.repro_ssd_chunk.restype = i
             _lib = lib
     return _lib
 

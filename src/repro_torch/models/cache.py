@@ -1,12 +1,15 @@
 """KV cache structures for serving — the PyTorch counterpart of
-``repro.models.cache`` for full-cache attention groups.
+``repro.models.cache`` for full-cache attention groups and SSM layers.
 
-Two kinds:
+Three kinds:
 
 - the full cache ``{"k", "v": (L, B, T, KV, Dh), "kv_pos": (B, T)}`` of the
   dense route, one per layer group, stacked over the group's layers, with
   slot index == absolute position (``kv_pos`` -1 = empty);
-- the paged pool of the paged route.
+- the paged pool of the paged route;
+- the SSM state ``{"h": (L, B, H, P, N), "conv": (L, B, K, conv_dim)}`` of
+  the mamba layers (the zamba group keeps one beside its shared block's
+  full cache).
 
 A paged pool replaces the per-sequence full-width (B, T, KV, Dh) cache with
 one shared physical pool of fixed-size pages, ``(L, P, page_size, KV, Dh)``
@@ -42,6 +45,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import dtype_of
+from .ssm import conv_dim
 
 Cache = Dict[str, torch.Tensor]
 
@@ -62,6 +66,20 @@ def init_attn_cache(
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
         "kv_pos": torch.full((batch, slots), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_ssm_cache(
+    cfg: ModelConfig, n_layers: int, batch: int, device: Optional[torch.device] = None,
+) -> Cache:
+    """Empty SSM state of one layer group, in the compute dtype: ``h``
+    (L, B, H, P, N) and the conv window ``conv`` (L, B, K, conv_dim)."""
+    dt = dtype_of(cfg.compute_dtype)
+    nh, n = cfg.n_ssm_heads, cfg.ssm_state
+    return {
+        "h": torch.zeros((n_layers, batch, nh, cfg.d_inner // nh, n), dtype=dt, device=device),
+        "conv": torch.zeros((n_layers, batch, cfg.ssm_conv, conv_dim(cfg)), dtype=dt,
+                            device=device),
     }
 
 

@@ -1,9 +1,10 @@
-"""Prefill — the PyTorch counterpart of ``repro.models.prefill`` for the
-``"dense"`` layer group: the full prefill that seeds full caches
-(``prefill``), the chunk append into existing full caches
+"""Prefill — the PyTorch counterpart of ``repro.models.prefill``: the full
+prefill that seeds full caches and SSM state (``prefill``; dense, mamba and
+zamba groups), the chunk append into existing full caches
 (``prefill_append``, session-level KV reuse on the dense route), and the
 paged route's chunked prefill straight into KV pages
-(``prefill_chunk_paged``). Caches and pools are written in place."""
+(``prefill_chunk_paged``); the last two for dense groups only. Caches and
+pools are written in place."""
 
 from __future__ import annotations
 
@@ -15,11 +16,13 @@ from .attention import attention_append, attention_chunk_paged, attention_forwar
 from .cache import Cache, append_kv_pos, gather_pages_stacked, prefill_kv_pos, trim_kv_pos
 from .config import ModelConfig
 from .layers import Params, dtype_of, embed_tokens, mlp_forward, rms_norm, unembed
-from .transformer import layer_groups
+from .transformer import _mamba_block_full, layer_groups
 
 
 def supports_append(cfg: ModelConfig) -> bool:
-    """Chunked paged prefill needs full-cache (slot == position) groups."""
+    """Incremental and chunked paged prefill need full-cache (slot ==
+    position) dense groups: SSM and hybrid state cannot be extended in
+    place the same way (as in JAX)."""
     if cfg.attn_variant != "full":
         return False
     try:
@@ -41,6 +44,12 @@ def _dense_block_prefill(
     return x, k, v
 
 
+def _alloc_kv(n_layers: int, b: int, max_len: int, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    shape = (n_layers, b, max_len) + tuple(k.shape[2:])
+    return (torch.zeros(shape, dtype=k.dtype, device=k.device),
+            torch.zeros(shape, dtype=k.dtype, device=k.device))
+
+
 def prefill(
     params: Dict,
     cfg: ModelConfig,
@@ -48,34 +57,66 @@ def prefill(
     max_len: int,
     true_len: Optional[torch.Tensor] = None,    # (B,) real lengths (bucketed input)
 ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
-    """Full prefill of positions 0..S-1 into fresh full caches of
-    ``max_len`` slots (``repro.models.prefill.prefill``): returns
-    (last-position logits (B,V), caches, next_pos (B,)). The prefill K/V
-    fill slots [0, S) and the rest stay zero. With ``true_len`` the input
-    is right-padded to a bucket length: padded positions are masked out of
-    attention, kv_pos is
-    valid below ``true_len`` only, and logits/next_pos refer to position
-    ``true_len - 1``. With the kernels, attention is K4."""
-    if not supports_append(cfg):
-        raise NotImplementedError(f"prefill requires full-cache dense groups ({cfg.name})")
+    """Full prefill of positions 0..S-1 into fresh caches
+    (``repro.models.prefill.prefill``): returns (last-position logits
+    (B,V), caches, next_pos (B,)). Attention K/V fill slots [0, S) of
+    ``max_len``-slot full caches and the rest stay zero; a mamba layer's
+    cache is its final SSM state and conv window. With ``true_len`` the
+    input is right-padded to a bucket length and logits/next_pos refer to
+    position ``true_len - 1``. As in JAX, the padding is masked out of
+    attention, and a dense group's kv_pos is valid below ``true_len`` only;
+    but a mamba layer runs its SSM over the padded rows too (so its state
+    has absorbed them), and a zamba group's kv_pos is not trimmed (its
+    padded slots lie after every decode query and are overwritten before a
+    query reaches them). With the kernels, attention is K4 and every mamba
+    layer's SSD is K6."""
+    if cfg.attn_variant != "full":
+        raise NotImplementedError(f"prefill requires full caches ({cfg.name})")
+    groups = layer_groups(cfg)
     b, s = tokens.shape
     dev = tokens.device
-    if s > max_len:
+    if s > max_len and any(spec.kind != "mamba" for spec in groups):
         raise ValueError(f"prefill of {s} tokens into {max_len} slots")
     idx = torch.arange(s, dtype=torch.int32, device=dev)
     seq_valid = idx[None, :] < true_len[:, None] if true_len is not None else None
     positions = idx[None].expand(b, s)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     caches: List[Cache] = []
-    for spec, gp in zip(layer_groups(cfg), params["groups"]):
+    for spec, gp in zip(groups, params["groups"]):
+        if spec.kind == "mamba":
+            hs, convs = [], []
+            for bp in gp:
+                x, final, conv = _mamba_block_full(bp, x, cfg)
+                hs.append(final)
+                convs.append(conv)
+            caches.append({"h": torch.stack(hs), "conv": torch.stack(convs)})
+            continue
+        if spec.kind == "zamba":
+            hs, convs = [], []
+            ck = cv = None
+            for g, group in enumerate(gp):
+                for bp in group:
+                    x, final, conv = _mamba_block_full(bp, x, cfg)
+                    hs.append(final)
+                    convs.append(conv)
+                x, k, v = _dense_block_prefill(
+                    params["shared_attn"], x, positions, cfg, 0, seq_valid
+                )
+                if ck is None:
+                    ck, cv = _alloc_kv(len(gp), b, max_len, k)
+                ck[g, :, :s] = k
+                cv[g, :, :s] = v
+            caches.append({
+                "ssm": {"h": torch.stack(hs), "conv": torch.stack(convs)},
+                "attn": {"k": ck, "v": cv, "kv_pos": prefill_kv_pos(b, max_len, s, dev)},
+            })
+            continue
         w = cfg.window_for_layer(0)
         ck = cv = None
         for i, bp in enumerate(gp):
             x, k, v = _dense_block_prefill(bp, x, positions, cfg, w, seq_valid)
             if ck is None:
-                shape = (len(gp), b, max_len) + tuple(k.shape[2:])
-                ck = torch.zeros(shape, dtype=k.dtype, device=dev)
-                cv = torch.zeros(shape, dtype=v.dtype, device=dev)
+                ck, cv = _alloc_kv(len(gp), b, max_len, k)
             ck[i, :, :s] = k
             cv[i, :, :s] = v
         kv_pos = prefill_kv_pos(b, max_len, s, dev)

@@ -1,13 +1,16 @@
 """Decoder assembly — the PyTorch counterpart of
-``repro.models.transformer`` for the ``"dense"`` layer group: the
-full-sequence forward (inference), the dense route's decode step against
-full caches, and the paged route's decode step against a page pool.
+``repro.models.transformer`` for the ``"dense"``, ``"mamba"`` and
+``"zamba"`` layer groups: the full-sequence forward (inference), the dense
+route's decode step against full caches and SSM state, and the paged
+route's decode step against a page pool (dense groups only).
 
-Parameters are ``{"embed": {...}, "groups": [[layer dict, ...], ...]}``:
-one list of per-layer dicts per group (the JAX package stacks each group on
-a leading L axis and scans it; a Python loop over layers replaces
-``scan_or_unroll`` here). Caches, pools and ``kv_pos`` are updated in
-place; the caches keep JAX's stacked layout (L, B, T, KV, Dh).
+Parameters are ``{"embed": {...}, "groups": [group, ...]}`` plus, for a
+zamba hybrid, ``"shared_attn"`` (one dense block's dict, shared by every
+zamba group). A dense or mamba group is a list of per-layer dicts; a zamba
+group is a list of ``n_groups`` lists of ``period`` mamba-layer dicts (the
+JAX package stacks each group on leading axes and scans it; Python loops
+over layers replace ``scan_or_unroll`` here). Caches, pools and ``kv_pos``
+are updated in place; the caches keep JAX's stacked layouts (L, B, ...).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from .cache import (
     Cache,
     gather_pages_stacked,
     init_attn_cache,
+    init_ssm_cache,
     paged_write_step,
     update_kv_pos,
     update_kv_pos_paged,
@@ -46,27 +50,40 @@ from .layers import (
     rms_norm,
     unembed,
 )
+from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 
 @dataclass(frozen=True)
 class GroupSpec:
-    kind: str          # dense (the only kind this port serves so far)
-    n_blocks: int
+    kind: str          # dense | mamba | zamba (the kinds this port serves so far)
+    n_blocks: int      # layers (zamba: shared-attention invocations)
+    period: int = 0    # zamba: mamba layers per shared-attention invocation
 
 
 def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
-    """The layer groups of ``cfg``: one ``"dense"`` group for the uniform
-    dense decoders. The JAX package's other kinds (gemma_pair, mamba,
-    zamba, moe) are not ported yet and raise."""
+    """The layer groups of ``cfg``, as in JAX: ``"zamba"`` groups (then any
+    remainder of mamba layers) for the zamba hybrid, one ``"mamba"`` group
+    for an SSM, one ``"dense"`` group for the uniform dense decoders. The
+    JAX package's other kinds (gemma_pair, moe) are not ported yet and
+    raise."""
+    if cfg.layer_pattern == "zamba_hybrid":
+        period = cfg.shared_attn_period
+        n_groups, rem = divmod(cfg.n_layers, period)
+        groups = [GroupSpec("zamba", n_groups, period)]
+        if rem:
+            groups.append(GroupSpec("mamba", rem))
+        return groups
     if (
         cfg.layer_pattern != "uniform"
-        or cfg.arch_type in ("ssm", "hybrid")
+        or cfg.arch_type == "hybrid"
         or cfg.n_experts > 0
     ):
         raise NotImplementedError(
-            f"{cfg.name}: only uniform dense decoders are ported "
-            "(ROADMAP, Queue 1 items 7-9)"
+            f"{cfg.name}: only uniform dense decoders, SSMs and the zamba hybrid "
+            "are ported (ROADMAP, Queue 1 items 7-8)"
         )
+    if cfg.arch_type == "ssm":
+        return [GroupSpec("mamba", cfg.n_layers)]
     return [GroupSpec("dense", cfg.n_layers)]
 
 
@@ -80,6 +97,11 @@ def _init_dense_block(cfg: ModelConfig, gen: torch.Generator, device: torch.devi
     }
 
 
+def _init_mamba_block(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Dict:
+    dt = dtype_of(cfg.param_dtype)
+    return {"norm": init_rms_norm(cfg.d_model, dt, device), "ssm": init_ssm(cfg, gen, device)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
     """Random weights with the JAX package's shapes, dtypes and scales
     (``repro.models.transformer.init_params``), drawn from a seeded
@@ -91,9 +113,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
     gen.manual_seed(seed)
     params: Dict = {"embed": init_embed(cfg, gen, dev), "groups": []}
     for spec in layer_groups(cfg):
-        params["groups"].append(
-            [_init_dense_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
-        )
+        if spec.kind == "dense":
+            group = [_init_dense_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
+        elif spec.kind == "mamba":
+            group = [_init_mamba_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
+        else:   # zamba: (n_groups, period) mamba blocks
+            group = [[_init_mamba_block(cfg, gen, dev) for _ in range(spec.period)]
+                     for _ in range(spec.n_blocks)]
+        params["groups"].append(group)
+    if cfg.layer_pattern == "zamba_hybrid":
+        params["shared_attn"] = _init_dense_block(cfg, gen, dev)
     return params
 
 
@@ -117,6 +146,27 @@ def _dense_block_full(
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
 
 
+def _mamba_block_full(
+    bp: Params, x: torch.Tensor, cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One mamba layer: returns (x, final SSM state, conv state)."""
+    out, final, conv_state = ssm_forward(bp["ssm"], rms_norm(x, bp["norm"], cfg.norm_eps), cfg)
+    return x + out, final, conv_state
+
+
+def _run_zamba_full(
+    gp: List[List[Params]], shared_bp: Params, x: torch.Tensor, positions: torch.Tensor,
+    cfg: ModelConfig, seq_valid: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """``period`` mamba layers then the shared attention block, per group."""
+    w = 0 if cfg.attn_variant == "full" else (cfg.sliding_window or 8192)
+    for group in gp:
+        for bp in group:
+            x, _, _ = _mamba_block_full(bp, x, cfg)
+        x = _dense_block_full(shared_bp, x, positions, cfg, w, seq_valid)
+    return x
+
+
 def forward_full(
     params: Dict,
     cfg: ModelConfig,
@@ -125,28 +175,44 @@ def forward_full(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for inference (``repro.models.transformer.
     forward_full``) at positions 0..S-1: returns (logits (B,S,V), aux loss
-    0 — dense groups carry none). With the kernels, attention is K4."""
+    0 — these groups carry none). With the kernels, attention is K4 and
+    every mamba layer's SSD is K6."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     for spec, gp in zip(layer_groups(cfg), params["groups"]):
-        w = cfg.window_for_layer(0)  # uniform groups share one window
-        for bp in gp:
-            x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
+        if spec.kind == "zamba":
+            x = _run_zamba_full(gp, params["shared_attn"], x, positions, cfg, seq_valid)
+        elif spec.kind == "mamba":
+            for bp in gp:
+                x, _, _ = _mamba_block_full(bp, x, cfg)
+        else:
+            w = cfg.window_for_layer(0)  # uniform groups share one window
+            for bp in gp:
+                x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
     return unembed(params["embed"], x, cfg), torch.zeros((), dtype=torch.float32)
 
 
 def make_decode_caches(
     cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None,
 ) -> List[Cache]:
-    """Empty full caches matching ``layer_groups(cfg)``: ``max_len`` slots
-    per lane, on ``device`` (default ``"cuda"``)."""
+    """Empty caches matching ``layer_groups(cfg)`` on ``device`` (default
+    ``"cuda"``): full caches of ``max_len`` slots per lane, SSM state for
+    mamba layers, both for a zamba group."""
     _full_caches_only(cfg)
     dev = resolve_device(device)
-    return [
-        init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev)
-        for spec in layer_groups(cfg)
-    ]
+    caches: List[Cache] = []
+    for spec in layer_groups(cfg):
+        if spec.kind == "dense":
+            caches.append(init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev))
+        elif spec.kind == "mamba":
+            caches.append(init_ssm_cache(cfg, spec.n_blocks, batch, dev))
+        else:
+            caches.append({
+                "ssm": init_ssm_cache(cfg, spec.n_blocks * spec.period, batch, dev),
+                "attn": init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev),
+            })
+    return caches
 
 
 def _dense_block_decode(
@@ -166,29 +232,58 @@ def _dense_block_decode(
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
 
 
+def _mamba_block_decode(
+    bp: Params, x: torch.Tensor, ssm: Cache, i: int, cfg: ModelConfig,
+) -> torch.Tensor:
+    """One mamba layer's decode step; layer ``i`` of ``ssm`` is updated in
+    place."""
+    out, st = ssm_decode_step(
+        bp["ssm"], rms_norm(x, bp["norm"], cfg.norm_eps),
+        {"h": ssm["h"][i], "conv": ssm["conv"][i]}, cfg,
+    )
+    ssm["h"][i] = st["h"]
+    ssm["conv"][i] = st["conv"]
+    return x + out
+
+
 def decode_step(
     params: Dict,
     cfg: ModelConfig,
-    caches: List[Cache],         # per group: {"k","v"} (L,B,T,KV,Dh), "kv_pos" (B,T)
+    caches: List[Cache],         # per group: see make_decode_caches
     tokens: torch.Tensor,        # (B, 1)
     pos: torch.Tensor,           # (B,) absolute position of this token
 ) -> Tuple[torch.Tensor, List[Cache]]:
-    """serve_step against full caches (``repro.models.transformer.
-    decode_step``): returns (logits (B, 1, V), caches). The token's K/V and
-    position land in ``caches`` in place, at slot ``min(pos, T - 1)`` (JAX
-    clamps: the full-width server decodes its empty lanes too); ``kv_pos``
-    is updated once per group, before the layer loop. With the kernels
-    each layer attends through K5."""
+    """serve_step against full caches and SSM state (``repro.models.
+    transformer.decode_step``): returns (logits (B, 1, V), caches). The
+    token's K/V and position land in ``caches`` in place, at slot
+    ``min(pos, T - 1)`` (JAX clamps: the full-width server decodes its empty
+    lanes too); ``kv_pos`` is updated once per group, before the layer
+    loop; each mamba layer's ``h`` and ``conv`` are replaced in place. With
+    the kernels each attention layer (dense, or zamba's shared block)
+    attends through K5."""
     _full_caches_only(cfg)
     positions = pos[:, None].to(torch.int32)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
-        update_kv_pos(cache["kv_pos"], pos)
-        kv_valid = cache["kv_pos"] >= 0
+        if spec.kind == "mamba":
+            for i, bp in enumerate(gp):
+                x = _mamba_block_decode(bp, x, cache, i, cfg)
+            continue
+        attn = cache["attn"] if spec.kind == "zamba" else cache
+        update_kv_pos(attn["kv_pos"], pos)
+        kv_valid = attn["kv_pos"] >= 0
+        if spec.kind == "zamba":
+            for g, group in enumerate(gp):
+                for i, bp in enumerate(group):
+                    x = _mamba_block_decode(bp, x, cache["ssm"], g * spec.period + i, cfg)
+                x = _dense_block_decode(
+                    params["shared_attn"], x, positions, attn["k"][g], attn["v"][g],
+                    attn["kv_pos"], kv_valid, cfg, 0,
+                )
+            continue
         for i, bp in enumerate(gp):
             x = _dense_block_decode(
-                bp, x, positions, cache["k"][i], cache["v"][i], cache["kv_pos"], kv_valid,
-                cfg, 0,
+                bp, x, positions, attn["k"][i], attn["v"][i], attn["kv_pos"], kv_valid, cfg, 0,
             )
     return unembed(params["embed"], x, cfg), caches
 

@@ -4,7 +4,9 @@ arrays, into the port's parameter dicts.
 The tests draw weights once with ``repro.models.init_params``, convert them
 with ``jax.tree_util.tree_map(np.asarray, params)`` and hand them to both
 packages, so the two run the same numbers. Each group's leading L axis is
-un-stacked into a list of per-layer dicts. bf16 arrays (numpy dtype
+un-stacked into a list of per-layer dicts (a zamba group's two leading
+axes, (n_groups, period), into a list of lists), and a zamba hybrid's
+``shared_attn`` block crosses as one dict. bf16 arrays (numpy dtype
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) cross through a
 16-bit integer view and come out bit-exact.
 """
@@ -42,11 +44,19 @@ def _layer(tree: Any, i: int) -> Any:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device: DeviceLike = None) -> Dict:
-    """``{"embed": {...}, "groups": (stacked group, ...)}`` of numpy arrays
-    -> the port's ``{"embed": {...}, "groups": [[layer, ...], ...]}``."""
+    """``{"embed": {...}, "groups": (stacked group, ...)[, "shared_attn":
+    {...}]}`` of numpy arrays -> the port's ``{"embed": {...}, "groups":
+    [[layer, ...], ...][, "shared_attn": {...}]}``."""
     dev = resolve_device(device)
     groups = []
     for spec, g in zip(layer_groups(cfg), tree["groups"]):
         stacked = _convert(g, dev)
-        groups.append([_layer(stacked, i) for i in range(spec.n_blocks)])
-    return {"embed": _convert(tree["embed"], dev), "groups": groups}
+        if spec.kind == "zamba":
+            groups.append([[_layer(_layer(stacked, j), i) for i in range(spec.period)]
+                           for j in range(spec.n_blocks)])
+        else:
+            groups.append([_layer(stacked, i) for i in range(spec.n_blocks)])
+    params = {"embed": _convert(tree["embed"], dev), "groups": groups}
+    if "shared_attn" in tree:
+        params["shared_attn"] = _convert(tree["shared_attn"], dev)
+    return params

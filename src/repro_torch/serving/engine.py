@@ -18,8 +18,14 @@ ids (the paper's llama.cpp extension, §4.1). Two routes, as in JAX:
   (K5); a keyed turn stores the cache in the pool afterwards (a paged pool
   writes it into pages).
 
-On a GPU every attention step runs a hand-written CUDA kernel
-(``repro_torch.kernels``).
+An SSM or hybrid model (Mamba2, Zamba2) takes the dense route only, as in
+JAX: its state cannot be extended in place, so it gets no session pool,
+and every turn is a bucketed full prefill (each mamba layer's SSD through
+K6, Zamba2's shared attention through K4) and then decode (K5 for the
+shared block).
+
+On a GPU every attention step and every SSD chunk runs a hand-written CUDA
+kernel (``repro_torch.kernels``).
 
 The migration warm-start hooks make a torch node a DisCEdge node: when a
 replicated tokenized context lands here, ``prime`` chunk-prefills it into
@@ -347,6 +353,7 @@ class InferenceEngine:
         cfg: ModelConfig,
         seed: int = 0,
         max_len: int = 1024,
+        bucket: int = 64,
         session_cache_capacity: int = 4,
         page_size: int = 0,
         kv_pages: int = 0,
@@ -360,7 +367,13 @@ class InferenceEngine:
         ``kv_pages`` > 0 the session pool stores its entries paged in one
         :class:`PagedKVAllocator` and keyed turns take the paged route;
         otherwise (the default, as in JAX) the pool holds dense caches and
-        every turn takes the dense route."""
+        every turn takes the dense route. A model whose state cannot be
+        extended in place (``supports_append`` False: the SSM and hybrid
+        models) gets no pool: every turn is a full prefill, padded to a
+        ``bucket`` multiple, then decode. Its SSD needs that length to be a
+        multiple of ``cfg.ssm_chunk``, as in JAX: the full-width configs
+        (chunk 128) need ``bucket=128``; the default 64 raises on a bucket
+        that is an odd multiple of 64."""
         dev = resolve_device(device)
         if params is None:
             params = init_params(cfg, seed, dev)
@@ -378,7 +391,9 @@ class InferenceEngine:
             # pages are the memory bound: the entry cap must never evict
             # before the page budget does (every entry holds >= 1 page)
             pool.capacity = max(pool.capacity, kv_pages)
-        return cls(cfg=cfg, params=params, device=dev, max_len=max_len, session_pool=pool)
+        return cls(
+            cfg=cfg, params=params, device=dev, max_len=max_len, bucket=bucket, session_pool=pool,
+        )
 
     def _paged_prefiller(self) -> PagedPrefiller:
         if self._prefiller is None:

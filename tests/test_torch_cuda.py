@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions over the shapes
-the kernels accept — page sizes 8/16/64, head dims 16-128, MHA/GQA/MQA,
-f32 and bf16, window x softcap, ragged and empty lanes, chunk boundaries.
+the kernels accept — page sizes 8/16/64, head dims 16-128 (and Zamba2's
+112 for K4/K5), MHA/GQA/MQA, f32 and bf16, window x softcap, ragged and
+empty lanes, chunk boundaries; the SSD chunk kernel (K6) over chunks
+64/128, state dims 16-128, head dims 32/64, with and without an initial
+state, and large decays.
 ``chip_smoke.py`` checks only the main path's shapes; this matrix covers
 the rest. Needs a CUDA GPU (sm_90a) and nvcc; skips elsewhere.
 
@@ -242,8 +245,9 @@ def _read_rows(q_pos, kv_pos, valid, window):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
+                (8, 2, 112)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -266,8 +270,9 @@ def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
+                (8, 2, 112)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_decode_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -299,3 +304,75 @@ def test_decode_kernel_reads_kv_pos(dev):
                                 kv_pos[:, perm].contiguous(), valid[:, perm].contiguous())
     torch.cuda.synchronize()
     torch.testing.assert_close(out, shuffled, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6 (the SSD chunk)
+# ---------------------------------------------------------------------------
+
+def _ssd(dev, B, L, H, P, N, decay=1.0, seed=0):
+    """x, dt (post-softplus), A < 0, B and C (one group), f32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, L, H, P, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(B, L, H, generator=gen, device=dev)) * decay
+    A = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
+    Bv = torch.randn(B, L, 1, N, generator=gen, device=dev)
+    Cv = torch.randn(B, L, 1, N, generator=gen, device=dev)
+    return x, dt, A, Bv, Cv
+
+
+@pytest.mark.parametrize("Q", [64, 128])
+@pytest.mark.parametrize("N", [16, 32, 64, 128])
+@pytest.mark.parametrize("P", [32, 64])
+def test_ssd_chunk_kernel_matches_plain(dev, Q, N, P):
+    """All three outputs (y_intra, states, dA_cs) over 3 chunks, 2 lanes."""
+    from repro_torch.kernels.ssd import ssd_chunk_ref
+    from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+
+    x, dt, A, Bv, Cv = _ssd(dev, 2, 3 * Q, 5, P, N)
+    args = (x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous())
+    got = ssd_chunk_cuda(*args, Q)
+    want = ssd_chunk_ref(*args, Q)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("y_intra", "states", "dA_cs"), got, want):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero-state", "h0"])
+@pytest.mark.parametrize("decay", [1.0, 50.0], ids=["moderate", "large"])
+@pytest.mark.parametrize("N,P", [(128, 64), (64, 64), (16, 32)], ids=["mamba2", "zamba2", "small"])
+def test_ssd_wrapper_matches_plain(dev, with_h0, decay, N, P):
+    """ops.ssd launches K6 once and matches its plain version (the same
+    wrapper on CPU copies of the inputs: the plain chunk function, then the
+    same chain); large decays take the clamp-before-exp path and stay
+    finite."""
+    from repro_torch.kernels.ssd import ssd
+
+    x, dt, A, Bv, Cv = _ssd(dev, 2, 256, 4, P, N, decay=decay, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h0 = torch.randn(2, 4, P, N, generator=gen, device=dev) if with_h0 else None
+    before = ssd.launches
+    y, f = ssd(x, dt, A, Bv, Cv, 128, h0)
+    assert ssd.launches == before + 1
+    cpu = [t.cpu() for t in (x, dt, A, Bv, Cv)]
+    wy, wf = ssd(*cpu, 128, None if h0 is None else h0.cpu())
+    assert ssd.launches == before + 1
+    wy, wf = wy.to(dev), wf.to(dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(f).all()
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(f, wf, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+
+    x, dt, A, Bv, Cv = _ssd(dev, 1, 192, 2, 64, 64)
+    with pytest.raises(AssertionError):
+        ssd(x, dt, A, Bv, Cv, 128)                       # 192 is no multiple of 128
+    with pytest.raises(ValueError):
+        ssd_chunk_cuda(x, dt, A, Bv[:, :, 0, :48].contiguous(), Cv[:, :, 0, :48].contiguous(), 64)
+    with pytest.raises(ValueError):
+        ssd_chunk_cuda(x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous(), 192)

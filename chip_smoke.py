@@ -12,18 +12,26 @@ non-zero):
                TF32 off for f32 matmuls and convolutions;
 2. build    — compiles the CUDA kernels from ``src/repro_torch/csrc`` with
                nvcc (sm_90a) into ``build/kernels/``; prints build seconds
-               and each kernel's register/shared-memory report;
+               and each kernel's register/shared-memory report, and reads
+               the machine code: the bf16 K3/K4 kernels must issue HMMA
+               (tensor-core) instructions, the f32 ones none;
 3. K1       — paged decode attention kernel vs its plain PyTorch version
                (bf16, ps 16, MHA and GQA with window x softcap, ragged lanes
                incl. an empty one), then timed at the main path's shape;
-4. K3       — chunked paged prefill kernel vs its plain version (S = 256,
-               p0 at 0 and mid-page, ragged true_len), then timed;
-5. K4       — flash attention kernel vs its plain version in bf16 and in
-               f32 (TF32 off): full prefills with ragged true_len and appends
-               whose p0 is no multiple of the key tile, MHA/GQA/MQA, d_head
-               64, 112 (Zamba2) and 128, window x softcap; then timed at the dense route's
-               shapes (a full prefill S = T = 1024; a 256-token append at p0
-               1024 against 2048 slots);
+4. K3       — chunked paged prefill kernel (bf16: the tensor-core kernel)
+               vs its plain version (S = 256, p0 at 0 and mid-page, ragged
+               true_len; then the tensor-core edges: S 1/15/17/150/333, p0
+               inside a key tile, ps 8/16/64, MHA/GQA/MQA, d_head 16-128,
+               window x softcap, windows that mask whole key tiles), then
+               timed;
+5. K4       — flash attention kernel vs its plain version in bf16 (tensor
+               cores) and in f32 (FMA units, TF32 off): full prefills with
+               ragged true_len and appends whose p0 is no multiple of the
+               key tile, MHA/GQA/MQA, d_head 64, 112 (Zamba2) and 128, window
+               x softcap; the bf16 edges as K3's; then timed at the dense
+               route's shapes (a full prefill S = T = 1024; a 256-token
+               append at p0 1024 against 2048 slots) and Zamba2's
+               (S = T = 1024, 32 x 112);
 6. K5       — flash decode kernel vs its plain version the same way at
                B = 1 and B = 8 against 2048 slots (ragged valid lengths);
                then timed at B = 1 and B = 8 over 1250 valid slots;
@@ -36,7 +44,9 @@ non-zero):
                and the per-step logits must agree;
 8. profile  — host-clock and torch.profiler times of 8 decode steps and
                one 256-token prefill chunk (device busy and idle share,
-               top kernels); diagnostic, after the counted run;
+               top kernels), after the counted run; the chunk's trace must
+               show the tensor-core K3 (chunked_prefill_mma) 24 times and
+               no f32 FMA kernel (*_simt);
 9. dense    — the dense route on the same weights: a page_size=0 service
                serves the same 3 sessions x 3 turns (turns 2-3 suffix-only
                hits), a kv_reuse=False service serves the same turns
@@ -46,7 +56,8 @@ non-zero):
                slots) serves a wave of 16 tenants and 8 second turns
                (session hits); K4 and K5 must launch on every path; one
                turn is teacher-forced through the kernel and plain paths;
-               a dense decode step and a 256-token append are profiled;
+               a dense decode step and a 256-token append are profiled (the
+               append's trace: flash_attention_mma 24 times, no *_simt);
 10. K2      — the shared-prefix kernel vs its plain version on (acc, m, l)
                at the batched server's shapes (B = 8 lanes, 64-page run,
                queries inside and past the run) and a GQA shape with
@@ -81,7 +92,8 @@ non-zero):
                and plain paths; prefill + 8 decode steps vs forward_full; a
                profiled prefill and decode step;
 16. zamba2-7b — the same for the full-width Zamba2 hybrid: K6 81 times and
-               K4 13 times per prefill, K5 13 times per decode step;
+               K4 13 times per prefill (the profiled prefill: the
+               tensor-core K4), K5 13 times per decode step;
 17. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
@@ -263,16 +275,31 @@ def _bound(nbytes: float, flops: float):
 # K3: chunked paged prefill attention
 # ---------------------------------------------------------------------------
 
-def _chunk_case(gen, p0s, lens, S, H, KV, Dh, mp, dtype, dev):
+def _chunk_case(gen, p0s, lens, S, H, KV, Dh, mp, dtype, dev, ps=PS):
     import torch
 
     B = len(p0s)
     q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
-    pk = torch.randn(1 + B * mp, PS, KV, Dh, generator=gen, device=dev).to(dtype)
-    pv = torch.randn(1 + B * mp, PS, KV, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(1 + B * mp, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(1 + B * mp, ps, KV, Dh, generator=gen, device=dev).to(dtype)
     table = (1 + torch.arange(B * mp, dtype=torch.int32, device=dev)).reshape(B, mp)
     return (q, pk, pv, table, torch.tensor(p0s, dtype=torch.int32, device=dev),
             torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _check_chunk(name, ops, ref, args, lens, window, cap) -> float:
+    """K3 vs its plain version over the rows that are read (bf16)."""
+    import torch
+
+    out = ops.chunked_prefill_attention(*args, window=window, softcap=cap)
+    want = ref.chunked_prefill_ref(*args, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    e = max((out[b, :n].float() - want[b, :n].float()).abs().max().item()
+            for b, n in enumerate(lens))
+    assert all(torch.isfinite(out[b, :n].float()).all() for b, n in enumerate(lens)), name
+    log(f"K3 {name}: max_abs_err {e:.3e} over read rows (bound {K3_TOL})")
+    assert e <= K3_TOL, f"K3 {name}: {e} > {K3_TOL}"
+    return e
 
 
 def phase_k3(dev, n_layers: int) -> dict:
@@ -289,17 +316,24 @@ def phase_k3(dev, n_layers: int) -> dict:
     ]
     for name, p0s, lens, H, KV, Dh, window, cap in cases:
         args = _chunk_case(gen, p0s, lens, S, H, KV, Dh, 128, torch.bfloat16, dev)
-        out = ops.chunked_prefill_attention(*args, window=window, softcap=cap)
-        want = ref.chunked_prefill_ref(*args, window=window, softcap=cap)
-        torch.cuda.synchronize()
-        e = max(
-            (out[b, :n].float() - want[b, :n].float()).abs().max().item()
-            for b, n in enumerate(lens)
-        )
-        assert all(torch.isfinite(out[b, :n].float()).all() for b, n in enumerate(lens)), name
-        log(f"K3 {name}: max_abs_err {e:.3e} over read rows (bound {K3_TOL})")
-        assert e <= K3_TOL, f"K3 {name}: {e} > {K3_TOL}"
-        err = max(err, e)
+        err = max(err, _check_chunk(name, ops, ref, args, lens, window, cap))
+    # the tensor-core kernel's edges, bf16: chunks that leave ragged 16- and
+    # 64-row tiles, p0 inside a key tile and inside a page, page sizes 8/16/64,
+    # MHA/GQA/MQA at every head dim, window x softcap, and a window of 20 that
+    # masks whole key tiles for some rows of a block
+    edges = [
+        ("S 1, ps 8, mqa d128", 1, 8, 8, 1, 128, 0, 0.0),
+        ("S 15, ps 16, gqa d32 window 37 x softcap", 15, 16, 8, 2, 32, 37, 30.0),
+        ("S 17, ps 64, mha d16 softcap", 17, 64, 4, 4, 16, 0, 30.0),
+        ("S 150, ps 16, mha d64 window 20", 150, 16, 16, 16, 64, 20, 0.0),
+        ("S 333, ps 8, gqa G=4 d64 window 100 x softcap", 333, 8, 16, 4, 64, 100, 30.0),
+        ("S 333, ps 64, mqa d128 window 20", 333, 64, 8, 1, 128, 20, 0.0),
+    ]
+    for name, S_e, ps, H, KV, Dh, window, cap in edges:
+        p0s, lens = (0, 5, 77, 130), (S_e, max(S_e - 3, 1), 1, S_e)
+        mp = -(-(max(p0s) + S_e) // ps) + 1
+        args = _chunk_case(gen, p0s, lens, S_e, H, KV, Dh, mp, torch.bfloat16, dev, ps=ps)
+        err = max(err, _check_chunk(f"edges {name}", ops, ref, args, lens, window, cap))
 
     # main-path shape: B = 1, a 256-token chunk at p0 = 768 (1024-token
     # prefix), MHA 16 x 64, one input set per layer
@@ -521,12 +555,14 @@ def _read_err(out, want, q_pos, kv_pos, valid, window) -> float:
     return (out[rows].float() - want[rows].float()).abs().max().item()
 
 
-def _check_linear(name, op, ref, cases, gen, dev) -> float:
+def _check_linear(name, op, ref, cases, gen, dev, dtypes=None) -> float:
     import torch
 
     err = 0.0
+    tols = {torch.bfloat16: K45_TOL, torch.float32: K45_F32_TOL}
     for label, p0s, lens, S, T, H, KV, Dh, window, cap in cases:
-        for dtype, tol in ((torch.bfloat16, K45_TOL), (torch.float32, K45_F32_TOL)):
+        for dtype in dtypes or tols:
+            tol = tols[dtype]
             args = _linear_case(gen, p0s, lens, S, T, H, KV, Dh, dtype, dev)
             out = op(*args, window=window, softcap=cap)
             want = ref(*args, window=window, softcap=cap)
@@ -560,15 +596,36 @@ def phase_k4(dev, n_layers: int) -> dict:
         ("prefill zamba2 mha d112 ragged", (0, 0), (1024, 777), 1024, 1024, 32, 32, 112, 0, 0.0),
     ]
     err = _check_linear("K4", ops.flash_attention, ref.flash_attention_ref, cases, gen, dev)
+    # the tensor-core kernel's edges, bf16: query lengths that leave ragged
+    # 16- and 64-row tiles, p0 inside a key tile, MHA/GQA/MQA at every head
+    # dim, window x softcap, and windows that mask whole key tiles for some
+    # rows of a block
+    edges = [
+        ("edges S 1 p0 5/63/130 mqa d128", (5, 63, 130), (1, 1, 1), 1, 200, 8, 1, 128, 0, 0.0),
+        ("edges S 15 gqa G=4 d32 window 37 x softcap", (0, 70), (15, 15), 15, 100, 16, 4, 32,
+         37, 30.0),
+        ("edges S 17 mha d16 softcap", (0, 0), (17, 9), 17, 17, 4, 4, 16, 0, 30.0),
+        ("edges S 150 T 300 mqa G=8 d112 window 37", (0, 130), (150, 150), 150, 300, 8, 1, 112,
+         37, 0.0),
+        ("edges S 333 T 333 mha d64 window 20", (0, 0), (333, 300), 333, 333, 16, 16, 64, 20,
+         0.0),
+        ("edges S 100 at p0 40 gqa G=4 d128 window 50 x softcap", (40,), (100,), 100, 300, 16, 4,
+         128, 50, 30.0),
+    ]
+    err = max(err, _check_linear("K4", ops.flash_attention, ref.flash_attention_ref, edges,
+                                 gen, dev, dtypes=(torch.bfloat16,)))
 
-    H, KV, Dh = 16, 16, 64
     out = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:105", "max_abs_err": err}
     # the main path's two shapes: a full prefill S = T = 1024 (bucket 64 of
     # a ~1k-token first turn), and a session hit's 256-token append chunk at
-    # p0 1024 against the 2048-slot cache
-    for shape, p0, S, T in (("prefill", 0, 1024, 1024), ("append", 1024, 256, 2048)):
+    # p0 1024 against the 2048-slot cache (MHA 16 x 64); and Zamba2's shared
+    # attention block over a 1024-token prefill (MHA 32 x 112)
+    for shape, p0, S, T, H, Dh in (("prefill", 0, 1024, 1024, 16, 64),
+                                   ("append", 1024, 256, 2048, 16, 64),
+                                   ("zamba2", 0, 1024, 1024, 32, 112)):
+        KV = H
         sets = [_linear_case(gen, (p0,), (S,), S, T, H, KV, Dh, torch.bfloat16, dev)
                 for _ in range(n_layers)]
         i32 = [(q, k, v, qp, kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
@@ -591,9 +648,9 @@ def phase_k4(dev, n_layers: int) -> dict:
             out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
         else:
-            out.update(append_ms=kernel_ms, append_plain_ms=plain_ms,
-                       append_library_ms=library_ms, append_bound_ms=bound_ms,
-                       append_bound_by=bound_by)
+            out.update({f"{shape}_ms": kernel_ms, f"{shape}_plain_ms": plain_ms,
+                        f"{shape}_library_ms": library_ms, f"{shape}_bound_ms": bound_ms,
+                        f"{shape}_bound_by": bound_by})
     return out
 
 
@@ -1072,8 +1129,8 @@ def phase_profile(svc, last_turn, dev) -> dict:
     """Where the time goes on the kernel path: 8 decode steps and one
     256-token prefill chunk of session s0's last turn, each timed on the
     host clock without the profiler, then traced with torch.profiler for
-    the device busy time and the top kernels. Diagnostic only: a trace with
-    no device time is reported as not measured, not as a failure."""
+    the device busy time and the top kernels. The chunk's trace must show
+    the bf16 tensor-core K3 once per layer and no f32 FMA kernel."""
     from repro_torch.serving import PagedPrefiller
 
     cfg, params = svc.engine.cfg, svc.engine.params
@@ -1089,7 +1146,9 @@ def phase_profile(svc, last_turn, dev) -> dict:
                         len(steps)),
         "prefill_chunk_256": (lambda: pref.run_chunk(pages, ids[p0:], p0), 1),
     }
-    return {name: profile_work(name, fn, per) for name, (fn, per) in work.items()}
+    report = {name: profile_work(name, fn, per) for name, (fn, per) in work.items()}
+    assert_served_by(report["prefill_chunk_256"], "chunked_prefill_mma", cfg.n_layers)
+    return report
 
 
 def profile_work(name, fn, per) -> dict:
@@ -1117,9 +1176,22 @@ def profile_work(name, fn, per) -> dict:
              "device_busy_ms": busy if busy > 0 else "not measured",
              # against the untraced wall: tracing slows the host, not the kernels
              "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
-             "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]]}
+             "top_kernels_ms": [(k[:70], t / per, c // per) for k, t, c in rows[:8]],
+             # the port's own kernels by name: which of them served this work
+             "repro_kernels": [(k.replace("(anonymous namespace)::", "").split("(")[0][-60:],
+                                t / per, c // per) for k, t, c in rows if "repro_torch" in k]}
     log(f"profile {name}: {json.dumps(entry)}")
     return entry
+
+
+def assert_served_by(entry, kernel: str, launches: int) -> None:
+    """The profiled work ran the bf16 tensor-core kernel ``kernel`` exactly
+    ``launches`` times and no f32 FMA (``*_simt``) kernel."""
+    names = entry["repro_kernels"]
+    calls = sum(c for k, _, c in names if f"{kernel}<" in k)
+    assert calls == launches, (kernel, launches, names)
+    assert not any("_simt<" in k for k, _, _ in names), names
+    log(f"profile: {kernel} served the work ({calls} launches), no *_simt kernel ran")
 
 
 # ---------------------------------------------------------------------------
@@ -1302,6 +1374,7 @@ def phase_dense(params, dev) -> tuple:
     report = {name: profile_work(name, fn, per)
               for name, fn, per in (("dense_decode_step", decode8, len(steps)),
                                     ("dense_append_256", append256, 1))}
+    assert_served_by(report["dense_append_256"], "flash_attention_mma", cfg.n_layers)
     del caches, trimmed
     torch.cuda.empty_cache()
 
@@ -1611,6 +1684,9 @@ def phase_ssm_model(dev, cfg, per_prefill: dict, per_decode: dict) -> dict:
     report = {f"{name}_prefill_1024": profile_work(f"{name}_prefill_1024",
                                                    lambda: prefill(params, cfg, toks, 2048), 1),
               f"{name}_decode_step": profile_work(f"{name}_decode_step", decode8, 8)}
+    if "flash_attention" in per_prefill:     # Zamba2's shared attention block
+        assert_served_by(report[f"{name}_prefill_1024"], "flash_attention_mma",
+                         per_prefill["flash_attention"])
     summary = {
         "ttft_ms_p50": float(np.percentile([t["ttft_ms"] for t in turns], 50)),
         "ttft_ms_max": max(t["ttft_ms"] for t in turns),
@@ -1663,6 +1739,31 @@ def phase_equivalence(svc, last_turn, dev) -> float:
     return diff
 
 
+def sass_tensor_core_check(build) -> None:
+    """Read the built library's machine code (cuobjdump, beside nvcc): every
+    instantiation of the bf16 prefill kernels (``*_mma``) must issue
+    tensor-core instructions (HMMA) and the f32 ones (``*_simt``) none.
+    Without cuobjdump this is reported as not checked."""
+    tool = Path(build._nvcc()).resolve().parent / "cuobjdump"
+    if not tool.exists():
+        log("sass: cuobjdump not found beside nvcc, tensor-core instructions not checked")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0]
+        for kernel in ("chunked_prefill_mma", "flash_attention_mma",
+                       "chunked_prefill_simt", "flash_attention_simt"):
+            if kernel in name:
+                hmma.setdefault(kernel, []).append(block.count(" HMMA."))
+    log(f"sass: HMMA instructions per instantiation {json.dumps(hmma)}")
+    for kernel in ("chunked_prefill_mma", "flash_attention_mma"):
+        assert hmma.get(kernel) and min(hmma[kernel]) > 0, (kernel, hmma)
+    for kernel in ("chunked_prefill_simt", "flash_attention_simt"):
+        assert hmma.get(kernel) and max(hmma[kernel]) == 0, (kernel, hmma)
+
+
 def main() -> int:
     import torch
 
@@ -1683,6 +1784,7 @@ def main() -> int:
     for line in (build.library_path().parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"build: {line.strip()}")
+    sass_tensor_core_check(build)
 
     n_layers = 24
     k1 = phase_k1(dev, n_layers)

@@ -5,7 +5,12 @@
 Takes the layouts the JAX kernel takes after its wrapper's reshapes, checks
 device, dtype, shape and contiguity, allocates the output with
 ``torch.empty`` and launches on the current stream. The kernel itself
-allocates nothing and does not synchronise."""
+allocates nothing and does not synchronise.
+
+The C entry point picks the kernel by dtype: bf16 (serving) runs
+``chunked_prefill_mma`` on the tensor cores (``mma.sync``, f32 sums); f32
+(the equivalence dtype, held to 1e-4) runs ``chunked_prefill_simt`` on the
+f32 FMA units, since TF32 tensor-core operands cannot meet that bound."""
 
 from __future__ import annotations
 

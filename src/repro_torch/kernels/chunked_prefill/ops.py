@@ -4,7 +4,9 @@ counterpart of ``repro.kernels.chunked_prefill.ops``).
 
 Dispatch is by the tensor's device alone: a CPU tensor runs the plain
 PyTorch version (``ref.py``), a CUDA tensor launches the CUDA kernel or
-raises. ``chunked_prefill_attention.launches`` counts kernel launches."""
+raises. On the card the dtype picks the kernel: bf16 the tensor-core one,
+f32 the f32 FMA one (``kernel.py``). ``chunked_prefill_attention.launches``
+counts kernel launches."""
 
 from __future__ import annotations
 

@@ -6,7 +6,12 @@ Takes the JAX layouts as they are (the kernel maps query head h to KV head
 h // G itself and masks the ragged edges, so nothing is reshaped or
 padded), checks device, dtype, shape and contiguity, allocates the output
 with ``torch.empty`` and launches on the current stream. The kernel itself
-allocates nothing and does not synchronise."""
+allocates nothing and does not synchronise.
+
+The C entry point picks the kernel by dtype: bf16 (serving) runs
+``flash_attention_mma`` on the tensor cores (``mma.sync``, f32 sums); f32
+(the equivalence dtype, held to 1e-4) runs ``flash_attention_simt`` on the
+f32 FMA units, since TF32 tensor-core operands cannot meet that bound."""
 
 from __future__ import annotations
 

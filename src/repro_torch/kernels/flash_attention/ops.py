@@ -4,7 +4,8 @@ appends into a full-width cache.
 
 Dispatch is by the tensor's device alone: a CPU tensor runs the plain
 PyTorch version (``ref.py``), a CUDA tensor launches the CUDA kernel (K4)
-or raises. ``flash_attention.launches`` counts kernel launches (never plain
+or raises. On the card the dtype picks the kernel: bf16 the tensor-core
+one, f32 the f32 FMA one (``kernel.py``). ``flash_attention.launches`` counts kernel launches (never plain
 runs). No block padding is needed: the kernel masks ragged edges itself."""
 
 from __future__ import annotations

@@ -357,6 +357,7 @@ class InferenceEngine:
         session_cache_capacity: int = 4,
         page_size: int = 0,
         kv_pages: int = 0,
+        share_prefixes: bool = True,
         device: DeviceLike = None,
         params: Optional[Dict] = None,
     ) -> "InferenceEngine":
@@ -365,7 +366,8 @@ class InferenceEngine:
         ``torch.Generator`` unless ``params`` (e.g. bridged JAX weights,
         ``models.params_from_numpy``) are given. With ``page_size`` and
         ``kv_pages`` > 0 the session pool stores its entries paged in one
-        :class:`PagedKVAllocator` and keyed turns take the paged route;
+        :class:`PagedKVAllocator` and keyed turns take the paged route
+        (``share_prefixes`` False turns its cross-session page sharing off);
         otherwise (the default, as in JAX) the pool holds dense caches and
         every turn takes the dense route. A model whose state cannot be
         extended in place (``supports_append`` False: the SSM and hybrid
@@ -386,7 +388,8 @@ class InferenceEngine:
             if max_len % page_size:
                 raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")
             pool.allocator = PagedKVAllocator(
-                cfg, page_size=page_size, n_pages=kv_pages, device=dev
+                cfg, page_size=page_size, n_pages=kv_pages, device=dev,
+                share_prefixes=share_prefixes,
             )
             # pages are the memory bound: the entry cap must never evict
             # before the page budget does (every entry holds >= 1 page)
@@ -499,6 +502,25 @@ class InferenceEngine:
                 return res
             self.paged_fallbacks += 1
         return self._generate_dense(input_ids, max_new_tokens, temperature, cache_key)
+
+    def generate(
+        self,
+        input_ids: List[int],
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        cache_key: Optional[str] = None,
+    ) -> List[int]:
+        """The generated token ids of :meth:`generate_ex`."""
+        return self.generate_ex(
+            input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, cache_key=cache_key,
+        ).token_ids
+
+    def warmup(self, lengths: Tuple[int, ...] = (64,)) -> None:
+        """One short keyless generation per entry of ``lengths`` (each at
+        most 16 tokens long, as in JAX)."""
+        for s in lengths:
+            self.generate(list(range(min(s, 16))), max_new_tokens=2)
 
     def _generate_dense(
         self,
@@ -842,13 +864,15 @@ class TorchLLMService:
         session_cache_capacity: int = 4,
         page_size: int = 0,
         kv_pages: int = 0,
+        share_prefixes: bool = True,
         device: DeviceLike = None,
         params: Optional[Dict] = None,
     ) -> "TorchLLMService":
         engine = InferenceEngine.create(
             cfg, seed=seed, max_len=max_len,
             session_cache_capacity=session_cache_capacity if kv_reuse else 0,
-            page_size=page_size, kv_pages=kv_pages, device=device, params=params,
+            page_size=page_size, kv_pages=kv_pages, share_prefixes=share_prefixes,
+            device=device, params=params,
         )
         tok = get_tokenizer(cfg.vocab_size, seed=tokenizer_seed, name=model)
         return cls(model=model, engine=engine, tokenizer=tok, kv_reuse=kv_reuse)

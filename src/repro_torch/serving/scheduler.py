@@ -865,11 +865,15 @@ class BatchedLLMService:
         model: str,
         server: BatchedServer,
         tokenizer: ByteLevelBPE,
+        tokenize_scale: float = 1.0,
         ship_prefill_ms_per_token: float = 0.0,
     ) -> None:
         self.model = model
         self.server = server
         self.tokenizer = tokenizer
+        # clock factor of the node's CPU class for tokenization time, read
+        # by the context manager that mounts this service
+        self.tokenize_scale = tokenize_scale
         # measured prefill constant for the KV-ship cost model (0 = this
         # node does not take part in page shipping)
         self.ship_prefill_ms_per_token = ship_prefill_ms_per_token

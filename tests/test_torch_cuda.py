@@ -4,6 +4,9 @@ the kernels accept — page sizes 8/16/64, head dims 16-128 (and Zamba2's
 empty lanes, chunk boundaries; the SSD chunk kernel (K6) over chunks
 64/128, state dims 16-128, head dims 32/64, with and without an initial
 state, and large decays.
+K3 and K4 in bf16 run on the tensor cores and in f32 on the FMA units:
+both are checked, and the bf16 edges (ragged row tiles, p0 inside a key
+tile, windows that mask whole tiles) have cases of their own.
 ``chip_smoke.py`` checks only the main path's shapes; this matrix covers
 the rest. Needs a CUDA GPU (sm_90a) and nvcc; skips elsewhere.
 
@@ -114,6 +117,59 @@ def test_chunk_kernel_matches_plain(dev, dtype, ps, H, KV, Dh, window, softcap):
     for b, n in enumerate(lens):
         torch.testing.assert_close(out[b, :n].float(), want[b, :n].float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ragged chunk lengths, chunk starts inside a key tile and inside a page
+EDGE_S = (1, 15, 17, 150, 333)
+EDGE_HEADS = [(4, 4), (8, 2), (8, 1)]
+EDGE_WINDOWS = [(0, 0.0), (37, 30.0), (20, 0.0)]
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("H,KV", EDGE_HEADS, ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("window,softcap", EDGE_WINDOWS, ids=["plain", "window-cap", "window20"])
+def test_chunk_kernel_bf16_edges(dev, ps, Dh, H, KV, window, softcap):
+    """The bf16 tensor-core K3 at chunk lengths that leave ragged 16- and
+    64-row tiles, p0 that is no multiple of the 64-key tile, every page
+    size, and a window of 20 that masks whole key tiles for some rows of a
+    block; only the rows that are read are compared."""
+    p0s = (0, 5, 77, 130)
+    for S in EDGE_S:
+        lens = (S, max(S - 3, 1), 1, S)
+        mp = -(-(max(p0s) + S) // ps) + 1
+        args = _chunk(dev, p0s, lens, S, ps, H, KV, Dh, mp, torch.bfloat16, seed=S)
+        out = chunked_prefill_attention(*args, window=window, softcap=softcap)
+        want = chunked_prefill_ref(*args, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        for b, n in enumerate(lens):
+            torch.testing.assert_close(out[b, :n].float(), want[b, :n].float(),
+                                       rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16],
+                                       msg=lambda m, S=S, b=b: f"S {S} lane {b}: {m}")
+
+
+def _kernel_names(fn) -> list:
+    """Names of the device kernels that one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "_mma"), (torch.float32, "_simt")],
+                         ids=["bf16", "f32"])
+def test_prefill_kernels_are_chosen_by_dtype(dev, dtype, kernel):
+    """bf16 runs the tensor-core K3 and K4, f32 the f32 FMA kernels."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    chunk = _chunk(dev, (0, 70), (96, 40), 96, 16, 8, 2, 64, 16, dtype)
+    lin = _linear(dev, 2, 96, 200, 8, 2, 64, dtype, (0, 70), (96, 40))
+    for fn, name in ((lambda: chunked_prefill_attention(*chunk), "chunked_prefill"),
+                     (lambda: flash_attention(*lin), "flash_attention")):
+        names = [n for n in _kernel_names(fn) if "repro_torch" in n]
+        assert len(names) == 1 and f"{name}{kernel}<" in names[0], names
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -266,6 +322,29 @@ def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
         rows = _read_rows(args[3], args[4], args[5], window)
         torch.testing.assert_close(out[rows].float(), want[rows].float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("H,KV", EDGE_HEADS, ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("window,softcap", EDGE_WINDOWS, ids=["plain", "window-cap", "window20"])
+def test_flash_kernel_bf16_edges(dev, Dh, H, KV, window, softcap):
+    """The bf16 tensor-core K4 at query lengths that leave ragged 16- and
+    64-row tiles: full prefills (S = T, ragged true_len) and appends at p0
+    5, 63 and 130 (no multiple of the key tile) into a cache with slack
+    slots; a window of 20 masks whole key tiles for some rows of a block."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    for S in EDGE_S:
+        for T, p0s, lens in ((S, (0, 0), (S, max(S - 3, 1))),
+                             (130 + S + 40, (5, 63, 130), (S, max(S // 2, 1), S))):
+            args = _linear(dev, len(p0s), S, T, H, KV, Dh, torch.bfloat16, p0s, lens, seed=S)
+            out = flash_attention(*args, window=window, softcap=softcap)
+            want = flash_attention_ref(*args, window=window, softcap=softcap)
+            torch.cuda.synchronize()
+            rows = _read_rows(args[3], args[4], args[5], window)
+            torch.testing.assert_close(out[rows].float(), want[rows].float(),
+                                       rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16],
+                                       msg=lambda m, S=S, T=T: f"S {S} T {T}: {m}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

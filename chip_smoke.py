@@ -12,7 +12,8 @@ non-zero):
                TF32 off for f32 matmuls and convolutions;
 2. build    — compiles the CUDA kernels from ``src/repro_torch/csrc`` with
                nvcc (sm_90a) into ``build/kernels/``; prints build seconds
-               and each kernel's register/shared-memory report, and reads
+               and each kernel's register/shared-memory report (the split
+               kernels K2 and K5 by name: registers and spills), and reads
                the machine code: the bf16 K3/K4 kernels must issue HMMA
                (tensor-core) instructions, the f32 ones none;
 3. K1       — paged decode attention kernel vs its plain PyTorch version
@@ -33,8 +34,11 @@ non-zero):
                append at p0 1024 against 2048 slots) and Zamba2's
                (S = T = 1024, 32 x 112);
 6. K5       — flash decode kernel vs its plain version the same way at
-               B = 1 and B = 8 against 2048 slots (ragged valid lengths);
-               then timed at B = 1 and B = 8 over 1250 valid slots;
+               B = 1 and B = 8 against 2048 slots (ragged valid lengths),
+               printing each shape's split plan (splits, grid, cluster);
+               then timed at B = 1 and B = 8 over 1250 valid slots and at
+               Zamba2's B = 1 (MHA 32 x 112), each shape run twice on the
+               same inputs for identical outputs; B = 1 must split;
 7. main     — TorchLLMService at the full width of the paper's
                Qwen1.5-0.5B (random weights from a seed) serves 3 sessions
                x 3 turns of tokenized context on the paged route; turns 2-3
@@ -57,13 +61,17 @@ non-zero):
                (session hits); K4 and K5 must launch on every path; one
                turn is teacher-forced through the kernel and plain paths;
                a dense decode step and a 256-token append are profiled (the
-               append's trace: flash_attention_mma 24 times, no *_simt);
+               append's trace: flash_attention_mma 24 times, no *_simt; the
+               decode step's: decode_attention_split 24 times);
 10. K2      — the shared-prefix kernel vs its plain version on (acc, m, l)
                at the batched server's shapes (B = 8 lanes, 64-page run,
                queries inside and past the run) and a GQA shape with
-               window x softcap; the cascade (K2, then K1 in continuation
-               mode) vs the plain single pass; then K2, K1's continuation
-               and the single-pass K1 timed at the batched shape;
+               window x softcap, printing each split plan; the cascade (K2,
+               then K1 in continuation mode) vs the plain single pass; then
+               at the batched shape (which must split; two runs identical)
+               K2, K1's continuation and the single-pass K1 timed, and the
+               cascade held against the single pass (or both printed with
+               the reason when it is slower);
 11. batched — BatchedLLMService at full paper width, 8 slots, paged: 16
                tenants sharing a 1024-token system prompt arrive as one
                wave, then 8 of them take a second turn; K1, K2 and K3 must
@@ -71,7 +79,7 @@ non-zero):
                fewer physical pages than without sharing) and every second
                turn must be a suffix-only session hit; prints tokens/s, ms
                per B = 8 decode step, ttft and pages, and profiles 4
-               decode steps;
+               decode steps (K2's shared_prefix_split once per layer);
 12. batched_equivalence — one cascade decode step on clones of the server's
                pools and kv_pos: logits with the cascade vs the single-pass
                kernels vs the plain path;
@@ -428,6 +436,7 @@ def phase_k2(dev, n_layers: int) -> dict:
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_cuda,
         shared_prefix_cuda,
+        shared_prefix_plan,
     )
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -453,6 +462,7 @@ def phase_k2(dev, n_layers: int) -> dict:
         e = _stats_err(got, want)
         e_out = (fused.float() - single.float()).abs().max().item()
         assert all(torch.isfinite(t).all() for t in got), name
+        log(f"K2 {name}: {_k2_plan_str(shared_prefix_plan, len(sfx), KV, H // KV, Dh, n_run)}")
         log(f"K2 {name}: stats err {json.dumps(e)} (bound {K2_STATS_TOL}); cascade "
             f"(K2 + K1 continuation) vs plain single pass: max_abs_err {e_out:.3e} "
             f"(bound {K1_TOL})")
@@ -475,6 +485,13 @@ def phase_k2(dev, n_layers: int) -> dict:
         bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
         qr = q.reshape(B, KV, H // KV, Dh).contiguous()
         prepared.append((qr, pk, pv, sp, qp, table, bound, kv_pos))
+    lanes, splits, grid = shared_prefix_plan(B, KV, H // KV, Dh, T)
+    log(f"K2 server shape: {_k2_plan_str(shared_prefix_plan, B, KV, H // KV, Dh, n_run)}")
+    assert splits > 1 and grid[1] * grid[2] == KV, "K2 must split the run across a cluster"
+    first, again = (shared_prefix_cuda(*prepared[0][:5]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again)), "K2: two runs differ"
+    log("K2 server shape: two runs on the same inputs give identical (acc, m, l)")
     k2_ms = device_time_ms([lambda a=a: shared_prefix_cuda(*a[:5]) for a in prepared])
     plain_ms = device_time_ms([lambda a=a: ref.shared_prefix_ref(*a[:5]) for a in prepared])
     inits = [shared_prefix_cuda(*a[:5]) for a in prepared]
@@ -511,6 +528,17 @@ def phase_k2(dev, n_layers: int) -> dict:
         f"{cont_ms:.5f} ms ({suffix_bytes} B of K/V); single pass over whole tables "
         f"{single_ms:.5f} ms ({single_bytes} B of K/V); cascade K2 + K1 "
         f"{k2_ms + cont_ms:.5f} ms ({run_bytes + suffix_bytes} B of K/V)")
+    floor = launch_floor_ms(dev)
+    if k2_ms + cont_ms < single_ms:
+        log(f"K2 cascade faster than the single pass at the server's lanes: "
+            f"{k2_ms + cont_ms:.5f} < {single_ms:.5f} ms")
+    else:
+        log(f"K2 cascade NOT faster than the single pass at the server's lanes: K2 "
+            f"{k2_ms:.5f} + K1 continuation {cont_ms:.5f} = {k2_ms + cont_ms:.5f} ms vs "
+            f"{single_ms:.5f} ms. Reason: it takes two launches where the single pass "
+            f"takes one, each at least the launch floor of {floor:.5f} ms (one 1-element "
+            f"add), while its K/V bytes save {(single_bytes - run_bytes - suffix_bytes) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"at the HBM rate")
     return {
         "name": "shared_prefix", "route": "cuda",
         "source": "src/repro_torch/csrc/shared_prefix.cu",
@@ -520,7 +548,23 @@ def phase_k2(dev, n_layers: int) -> dict:
         "k1_continuation_ms": cont_ms, "k1_single_pass_ms": single_ms,
         "k1_single_pass_kv_bytes": single_bytes,
         "cascade_kv_bytes": run_bytes + suffix_bytes,
+        "lanes": lanes, "splits": splits, "grid": grid, "launch_floor_ms": floor,
     }
+
+
+def _k2_plan_str(plan, B, KV, G, Dh, n_pages) -> str:
+    lanes, splits, grid = plan(B, KV, G, Dh, n_pages * PS)
+    return (f"B={B} KV={KV} G={G} Dh={Dh} run {n_pages * PS} tokens -> {lanes} lanes per "
+            f"block, splits {splits}, grid {grid} = {grid[0] * grid[1] * grid[2]} blocks, "
+            f"cluster ({splits}, 1, 1)")
+
+
+def launch_floor_ms(dev) -> float:
+    """Device time of the least kernel: an in-place add on one element."""
+    import torch
+
+    x = torch.zeros(1, device=dev)
+    return device_time_ms([lambda: x.add_(1.0)])
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +702,7 @@ def phase_k5(dev, n_layers: int) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda, decode_plan
 
     gen = torch.Generator(device=dev).manual_seed(5)
     T = 2048
@@ -671,19 +715,30 @@ def phase_k5(dev, n_layers: int) -> dict:
         ("B=8 mqa", tuple(n - 1 for n in lens8), (1,) * 8, 1, T, 16, 1, 64, 0, 0.0),
         ("B=1 zamba2 mha d112", (1100,), (1,), 1, T, 32, 32, 112, 0, 0.0),
     ]
+    for label, p0s, _, _, _, H, KV, Dh, _, _ in cases:
+        log(f"K5 {label}: {_k5_plan_str(decode_plan, len(p0s), H, KV, Dh, T)}")
     err = _check_linear("K5", ops.decode_attention, ref.decode_attention_ref, cases, gen, dev)
 
-    H, KV, Dh, n_valid = 16, 16, 64, 1250
+    n_valid = 1250
     out = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
            "replaces": "src/repro/kernels/decode_attention/kernel.py:96", "max_abs_err": err}
     # the main path's shapes: one decode query per lane against the
-    # 2048-slot cache holding ~1.25k tokens, B = 1 (engine) and 8 (server)
-    for B in (1, 8):
+    # 2048-slot cache holding ~1.25k tokens, B = 1 (engine) and 8 (server),
+    # and Zamba2's shared attention block (MHA 32 x 112) at B = 1
+    for name, B, H, KV, Dh in (("B=1", 1, 16, 16, 64), ("B=8", 8, 16, 16, 64),
+                               ("zamba2 B=1", 1, 32, 32, 112)):
+        splits, grid = decode_plan(B, KV, T)
+        log(f"K5 {name}: {_k5_plan_str(decode_plan, B, H, KV, Dh, T)}")
+        if B == 1:
+            assert splits > 1, "K5 must split the walk across a cluster at B = 1"
         sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
                              torch.bfloat16, dev) for _ in range(n_layers)]
         prep = [(q.reshape(B, KV, H // KV, Dh).contiguous(), k, v, qp.reshape(B).contiguous(),
                  kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
+        first, again = (decode_attention_cuda(*prep[0]) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), f"K5 {name}: two runs differ"
         kernel_ms = device_time_ms([lambda a=a: decode_attention_cuda(*a) for a in prep])
         plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a) for a in sets])
         lib = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -693,16 +748,25 @@ def phase_k5(dev, n_layers: int) -> dict:
              for a in lib])
         nbytes = B * (2 * n_valid * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (1 + 2 * T))
         bound_ms, bound_by = _bound(nbytes, B * 4 * H * Dh * n_valid)
-        log(f"K5 B={B} (T {T}, {n_valid} valid slots, MHA {H} x {Dh}): kernel_ms "
+        log(f"K5 {name} (T {T}, {n_valid} valid slots, MHA {H} x {Dh}): kernel_ms "
             f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
-            f"{bound_ms:.6f} ({bound_by}, {nbytes} B)")
-        if B == 1:
+            f"{bound_ms:.6f} ({bound_by}, {nbytes} B); two runs identical")
+        if name == "B=1":
             out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, splits=splits, grid=grid)
         else:
-            out.update(b8_ms=kernel_ms, b8_plain_ms=plain_ms, b8_library_ms=library_ms,
-                       b8_bound_ms=bound_ms, b8_bound_by=bound_by)
+            key = "b8" if B == 8 else "zamba2"
+            out.update({f"{key}_ms": kernel_ms, f"{key}_plain_ms": plain_ms,
+                        f"{key}_library_ms": library_ms, f"{key}_bound_ms": bound_ms,
+                        f"{key}_bound_by": bound_by, f"{key}_splits": splits,
+                        f"{key}_grid": grid})
     return out
+
+
+def _k5_plan_str(plan, B, H, KV, Dh, T) -> str:
+    splits, grid = plan(B, KV, T)
+    return (f"B={B} H={H} KV={KV} Dh={Dh} T={T} -> splits {splits}, grid {grid} = "
+            f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -869,8 +933,11 @@ def phase_batched(dev):
         entry = {"wall_ms": wall, "traced_wall_ms": profiled["traced_wall_ms"],
                  "device_busy_ms": busy if busy > 0 else "not measured",
                  "device_idle_share": max(0.0, 1 - busy / wall) if busy > 0 else "not measured",
-                 "top_kernels_ms": [(k[:70], t / 4, c // 4) for k, t, c in rows[:8]]}
+                 "top_kernels_ms": [(k[:70], t / 4, c // 4) for k, t, c in rows[:8]],
+                 "repro_kernels": [(k.replace("(anonymous namespace)::", "").split("(")[0][-60:],
+                                    t / 4, c // 4) for k, t, c in rows if "repro_torch" in k]}
         log(f"profile decode_step_b8: {json.dumps(entry)}")
+        assert_served_by(entry, "shared_prefix_split", cfg.n_layers)
     return svc, launches, summary, equivalence
 
 
@@ -1185,8 +1252,9 @@ def profile_work(name, fn, per) -> dict:
 
 
 def assert_served_by(entry, kernel: str, launches: int) -> None:
-    """The profiled work ran the bf16 tensor-core kernel ``kernel`` exactly
-    ``launches`` times and no f32 FMA (``*_simt``) kernel."""
+    """The profiled work ran the kernel ``kernel`` (a tensor-core prefill
+    kernel, or a split-walk decode kernel) exactly ``launches`` times per
+    unit of work and no f32 FMA (``*_simt``) kernel."""
     names = entry["repro_kernels"]
     calls = sum(c for k, _, c in names if f"{kernel}<" in k)
     assert calls == launches, (kernel, launches, names)
@@ -1375,6 +1443,7 @@ def phase_dense(params, dev) -> tuple:
               for name, fn, per in (("dense_decode_step", decode8, len(steps)),
                                     ("dense_append_256", append256, 1))}
     assert_served_by(report["dense_append_256"], "flash_attention_mma", cfg.n_layers)
+    assert_served_by(report["dense_decode_step"], "decode_attention_split", cfg.n_layers)
     del caches, trimmed
     torch.cuda.empty_cache()
 
@@ -1739,6 +1808,37 @@ def phase_equivalence(svc, last_turn, dev) -> float:
     return diff
 
 
+def split_kernel_resources(build, ptxas: str) -> list:
+    """(kernel, registers, spills) of every instantiation of the split-walk
+    kernels K2 (``shared_prefix_split``) and K5 (``decode_attention_split``)
+    from nvcc's ``-Xptxas -v`` report, names demangled by cu++filt where it
+    sits beside nvcc."""
+    import re
+
+    found, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if re.search("shared_prefix_split|decode_attention_split",
+                                           m.group(1)) else None
+            spills = None
+        elif name and "spill" in line:
+            spills = line.strip().split(", ", 1)[1]
+        elif name and "Used" in line and "registers" in line:
+            found.append([name, int(re.search(r"Used (\d+) registers", line).group(1)), spills])
+            name = None
+    filt = Path(build._nvcc()).resolve().parent / "cu++filt"
+    if filt.exists() and found:
+        names = subprocess.run([str(filt)], input="\n".join(f[0] for f in found),
+                               capture_output=True, text=True).stdout.splitlines()
+        for f, n in zip(found, names):
+            f[0] = n.replace("repro_torch::(anonymous namespace)::", "")
+    assert {k for k in ("shared_prefix_split", "decode_attention_split")
+            if any(k in f[0] for f in found)} == {"shared_prefix_split",
+                                                  "decode_attention_split"}, found
+    return found
+
+
 def sass_tensor_core_check(build) -> None:
     """Read the built library's machine code (cuobjdump, beside nvcc): every
     instantiation of the bf16 prefill kernels (``*_mma``) must issue
@@ -1781,9 +1881,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {build.library_path().relative_to(ROOT)}")
-    for line in (build.library_path().parent / "ptxas.log").read_text().splitlines():
+    ptxas = (build.library_path().parent / "ptxas.log").read_text()
+    for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"build: {line.strip()}")
+    for name, regs, spills in split_kernel_resources(build, ptxas):
+        log(f"build: {name}: {regs} registers, {spills}")
     sass_tensor_core_check(build)
 
     n_layers = 24

@@ -13,194 +13,135 @@
 //
 // What bounds it on this card: bytes. Each attended token costs
 // 2 * Dh * sizeof(T) bytes of K/V per KV head and ~4 * G * Dh flops, far
-// below the card's ~295 flop/byte ridge. At the serving batch the grid is
-// only B * KV blocks (16 at B = 1 for the paper model) on 132 SMs, so the
-// walk is latency bound before it is bandwidth bound; splitting the walk
-// across blocks (split-KV with a merge pass) is later work.
+// below the card's ~295 flop/byte ridge. A block per (lane, KV head) would
+// give 16 blocks at B = 1 for the paper model on 132 SMs, a walk bound by
+// one block's load latency, not by bandwidth.
 //
-// Design (from csrc/paged_attention.cu, without the page table): one block
-// of 128 threads per (lane, KV head) walks the cache in tiles of 128 slots,
-// one slot per thread. Each thread reads its slot's kv_pos and kv_valid
-// first; a tile with no unmasked slot is skipped whole (block-uniform, an
-// exact skip — the kernel reads kv_pos rather than assuming slot ==
-// position, so the caller may pass any positions). A live slot's K row goes
-// straight into the thread's registers with 16-byte loads and its V row into
-// shared memory, and the thread computes its G logits against the G query
-// rows held in shared memory. One warp per query row then does the online-
-// softmax update (m, l in f32 shared memory), and the block accumulates P.V
-// with each thread owning fixed (g, d) cells of acc in f32 registers.
+// Design: a split walk (csrc/split_decode.cuh). One cluster of `splits`
+// blocks of 8 warps per (lane, KV head); the host picks `splits`
+// (kernels/decode_attention/kernel.py decode_plan): 16 clusters of 8 at
+// B = 1 for the paper model (256 slots per block: one 32-slot sub-tile per
+// warp), 32 of 4 for Zamba2, 128 of 1 at B = 8. The R = G query rows of the
+// KV head go together. Each lane reads its slot's kv_pos and kv_valid a
+// sub-tile ahead; a sub-tile with no unmasked slot is skipped whole
+// (warp-uniform, an exact skip — the kernel reads kv_pos rather than
+// assuming slot == position, so the caller may pass any positions), so a
+// split past the valid slots reads no K/V and contributes the empty state.
+// Each rank of the cluster normalises and writes its share of the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "split_decode.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 128;  // threads per block == slots per tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAcc = 8;     // G * Dh <= kThreads * kMaxAcc
-
+constexpr int kMaxRowsDh = 1024;            // G * Dh per block
+constexpr int kMaxPairs = kMaxRowsDh / 64;  // accumulator pairs per lane
+// warps per block: 8, so that a 256-slot split is one sub-tile per warp,
+// but 4 for rows over 256 bytes (f32 at Dh 112 and 128), whose staged K/V
+// rows would not fit 8 warps' shared memory
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
+constexpr int warps() {
+  return DH * (int)sizeof(T) > 256 ? 4 : 8;
+}
+
+template <typename T, int DH, int kWarps = warps<T, DH>(), int kThreads = 32 * kWarps>
+__global__ void __launch_bounds__(kThreads) decode_attention_split(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
-    const int* __restrict__ kv_valid, T* __restrict__ out, int T_len, int KV,
-    int G, int window, float softcap, float scale) {
-  constexpr int VS = DH + 4;  // padded V row stride (floats)
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                      // G * DH query rows
-  float* v_s = q_s + G * DH;              // kThreads * VS value rows
-  float* s_s = v_s + kThreads * VS;       // G * kThreads logits -> probabilities
-  float* alpha_s = s_s + G * kThreads;    // G
-  float* m_s = alpha_s + G;               // G running max
-  float* l_s = m_s + G;                   // G running sum
-  int* valid_s = reinterpret_cast<int*>(l_s + G);  // kThreads
-
-  const int b = blockIdx.x, h = blockIdx.y;
+    const int* __restrict__ kv_valid, T* __restrict__ out, int T_len, int KV, int G,
+    int window, float softcap, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int R = G;  // the KV head's query rows
+  const split::Smem<T, DH, kWarps> sm(smem_raw, R, gridDim.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int GD = G * DH;
-
   const size_t lane_head = (size_t)b * KV + h;
-  const T* qb = q + lane_head * GD;
-  for (int i = tid; i < GD; i += kThreads) q_s[i] = to_float(qb[i]);
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
-
-  const int qp = q_pos[b];
+  int lo, hi;
+  split::split_range(T_len, (int)gridDim.x, (int)blockIdx.x, lo, hi);
+  const int* pos_b = kv_pos + (size_t)b * T_len;
+  const int* valid_b = kv_valid + (size_t)b * T_len;
   const size_t tok_stride = (size_t)KV * DH;
   const T* kb = k + (size_t)b * T_len * tok_stride + (size_t)h * DH;
   const T* vb = v + (size_t)b * T_len * tok_stride + (size_t)h * DH;
-
-  for (int t0 = 0; t0 < T_len; t0 += kThreads) {
-    __syncthreads();  // the previous tile's readers are done with v_s / s_s
-    const int t = t0 + tid;
-    bool valid = false;
-    if (t < T_len) {
-      const int kp = kv_pos[(size_t)b * T_len + t];
-      valid = kv_valid[(size_t)b * T_len + t] != 0 && kp <= qp &&
-              (window <= 0 || qp - kp < window);
-    }
-    if (!__syncthreads_or(valid)) continue;  // block-uniform: an exact skip
-
-    float* v_row = v_s + tid * VS;
-    valid_s[tid] = valid;
-    if (valid) {
-      float k_reg[DH];
-      const size_t off = (size_t)t * tok_stride;
-#pragma unroll
-      for (int d = 0; d < DH; d += Vec16<T>::N) {
-        Vec16<T>::load(kb + off + d, k_reg + d);
-        Vec16<T>::load(vb + off + d, v_row + d);
-      }
-      for (int g = 0; g < G; ++g) {
-        const float4* q4 = reinterpret_cast<const float4*>(q_s + g * DH);
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH / 4; ++c) {
-          const float4 qv = q4[c];
-          dot += qv.x * k_reg[4 * c] + qv.y * k_reg[4 * c + 1] +
-                 qv.z * k_reg[4 * c + 2] + qv.w * k_reg[4 * c + 3];
-        }
-        s_s[g * kThreads + tid] = apply_softcap(dot * scale, softcap);
-      }
-    } else {
-      // masked: p == 0 below, and it must meet a finite v
-      for (int g = 0; g < G; ++g) s_s[g * kThreads + tid] = kNegInf;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) v_row[d] = 0.f;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float* sg = s_s + g * kThreads;
-      float mx = kNegInf;
-      for (int i = lane; i < kThreads; i += 32) mx = fmaxf(mx, sg[i]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int i = lane; i < kThreads; i += 32) {
-        const float pr = valid_s[i] ? expf(sg[i] - m_new) : 0.f;
-        sg[i] = pr;
-        sum += pr;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P . V, each thread owning fixed (g, d) cells
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < GD) {
-        const int g = idx / DH, d = idx - g * DH;
-        const float* pg = s_s + g * kThreads;
-        float a = acc[j] * alpha_s[g];
-        for (int i = 0; i < kThreads; ++i) a += pg[i] * v_s[i * VS + d];
-        acc[j] = a;
-      }
-    }
+  const int qp = q_pos[b];
+  auto attended = [&](int t, int kp, int valid) {
+    return t < hi && valid != 0 && kp <= qp && (window <= 0 || qp - kp < window);
+  };
+  // each warp's first sub-tile: its slots' metadata loads with q, and its
+  // K/V copies start before q is stored; later sub-tiles' metadata loads a
+  // step ahead
+  const int first = lo + warp * 32;
+  int kp = 0, valid = 0, kp_next = 0, valid_next = 0;
+  if (first + lane < hi) {
+    kp = pos_b[first + lane];
+    valid = valid_b[first + lane];
   }
+  if (first + kThreads + lane < hi) {
+    kp_next = pos_b[first + kThreads + lane];
+    valid_next = valid_b[first + kThreads + lane];
+  }
+  const size_t q0 = lane_head * R * DH;
+  split::load_q<kMaxRowsDh>(sm, R, q, [&](int r) { return q0 + (size_t)r * DH; }, [&] {
+    const bool live = attended(first + lane, kp, valid);
+    if (__any_sync(0xffffffffu, live))
+      split::stage(sm, live, live ? (size_t)(first + lane) * tok_stride : 0, kb, vb);
+  });
+  split::begin(sm, R);
+  float acc[2 * kMaxPairs];
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxPairs; ++j) acc[j] = 0.f;
   __syncthreads();
 
-  T* ob = out + lane_head * GD;
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx < GD) {
-      float l = l_s[idx / DH];
-      l = l == 0.f ? 1.f : l;
-      ob[idx] = from_float<T>(acc[j] / l);
+  for (int base = first; base < hi; base += kThreads) {
+    const int t = base + lane;
+    const bool live = attended(t, kp, valid);
+    kp = kp_next;
+    valid = valid_next;
+    if (t + 2 * kThreads < hi) {
+      kp_next = pos_b[t + 2 * kThreads];
+      valid_next = valid_b[t + 2 * kThreads];
     }
+    if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform: an exact skip
+    if (base != first) split::stage(sm, live, live ? (size_t)t * tok_stride : 0, kb, vb);
+    split::warp_step<kMaxPairs>(sm, R, live, [](int) { return true; }, scale, softcap, acc);
   }
+
+  split::block_merge<kMaxPairs>(sm, R, acc);
+  T* ob = out + lane_head * R * DH;
+  split::cluster_merge(
+      sm, R,
+      [&](int c, int, float a, float l) { ob[c] = from_float<T>(a / (l == 0.f ? 1.f : l)); },
+      [](int, float, float) {});
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_pos,
-                   const void* kv_pos, const void* kv_valid, void* out, int B,
-                   int T_len, int KV, int G, int window, float softcap, float scale,
+                   const void* kv_pos, const void* kv_valid, void* out, int B, int T_len,
+                   int KV, int G, int splits, int window, float softcap, float scale,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)G * DH + (size_t)kThreads * (DH + 4) +
-                                       (size_t)G * kThreads + 3 * (size_t)G) +
-                      sizeof(int) * kThreads;
-  auto kern = decode_attention_kernel<T, DH>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<dim3(B, KV), kThreads, smem, stream>>>(
+  constexpr int kWarps = warps<T, DH>();
+  return split::launch_split<kWarps>(
+      decode_attention_split<T, DH>, splits, KV, B,
+      split::Smem<T, DH, kWarps>::bytes(G, splits), stream,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<const int*>(kv_valid), static_cast<T*>(out), T_len, KV, G,
-      window, softcap, scale);
-  return cudaGetLastError();
+      static_cast<const int*>(kv_valid), static_cast<T*>(out), T_len, KV, G, window,
+      softcap, scale);
 }
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
-                        const void* q_pos, const void* kv_pos,
-                        const void* kv_valid, void* out, int B, int T_len, int KV,
-                        int G, int window, float softcap, float scale,
-                        cudaStream_t stream) {
-#define REPRO_DECODE_CASE(D)                                                  \
-  case D:                                                                     \
-    return launch<T, D>(q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV, \
-                        G, window, softcap, scale, stream);
+                        const void* q_pos, const void* kv_pos, const void* kv_valid,
+                        void* out, int B, int T_len, int KV, int G, int splits, int window,
+                        float softcap, float scale, cudaStream_t stream) {
+#define REPRO_DECODE_CASE(D)                                                           \
+  case D:                                                                              \
+    return launch<T, D>(q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV, G, splits, \
+                        window, softcap, scale, stream);
   switch (Dh) {
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(32)
@@ -216,24 +157,24 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro_torch
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError() after the launch.
+// Plain C entry point (bound with ctypes). Launches one cluster launch on
+// `stream` (grid (splits, KV, B), clusters of splits blocks), allocates
+// nothing, does not synchronise; returns the launch's error.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* kv_pos,
-                                      const void* kv_valid, void* out, int B,
-                                      int T_len, int KV, int G, int Dh, int window,
-                                      float softcap, float scale, int dtype,
-                                      void* stream) {
+                                      const void* kv_valid, void* out, int B, int T_len,
+                                      int KV, int G, int Dh, int splits, int window,
+                                      float softcap, float scale, int dtype, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || T_len <= 0 || G * Dh > kThreads * kMaxAcc)
+  if (B <= 0 || T_len <= 0 || G * Dh > kMaxRowsDh || splits < 1 ||
+      splits > split::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return (int)dispatch_dh<__nv_bfloat16>(Dh, q, k, v, q_pos, kv_pos, kv_valid,
-                                           out, B, T_len, KV, G, window, softcap,
-                                           scale, s);
+    return (int)dispatch_dh<__nv_bfloat16>(Dh, q, k, v, q_pos, kv_pos, kv_valid, out, B,
+                                           T_len, KV, G, splits, window, softcap, scale, s);
   if (dtype == kFloat32)
-    return (int)dispatch_dh<float>(Dh, q, k, v, q_pos, kv_pos, kv_valid, out, B,
-                                   T_len, KV, G, window, softcap, scale, s);
+    return (int)dispatch_dh<float>(Dh, q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV,
+                                   G, splits, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -126,12 +126,12 @@ def load_library() -> ctypes.CDLL:
             )
             lib.repro_chunked_prefill.restype = i
             lib.repro_shared_prefix.argtypes = (
-                [vp] * 8 + [i] * 8 + [f, f, i, vp]
+                [vp] * 8 + [i] * 10 + [f, f, i, vp]
             )
             lib.repro_shared_prefix.restype = i
             lib.repro_flash_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
             lib.repro_flash_attention.restype = i
-            lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 6 + [f, f, i, vp]
+            lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
             lib.repro_decode_attention.restype = i
             lib.repro_ssd_chunk.argtypes = [vp] * 8 + [i] * 6 + [vp]
             lib.repro_ssd_chunk.restype = i

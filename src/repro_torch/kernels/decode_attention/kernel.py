@@ -9,12 +9,23 @@ allocates nothing and does not synchronise."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..build import DTYPE_CODES, check, load_library, require, stream_ptr
 from ..flash_attention.kernel import check_linear_kv
+from ..paged_attention.kernel import plan_splits
 
 WHERE = "decode_attention_cuda"
+
+
+def decode_plan(b: int, kvh: int, t: int) -> Tuple[int, Tuple[int, int, int]]:
+    """K5's launch: ``(splits, grid)``, the grid ``(splits, KV, B)`` with
+    clusters of ``(splits, 1, 1)``, each split a run of whole 128-slot
+    tiles of the T slots (``plan_splits``)."""
+    splits = plan_splits(b * kvh, t)
+    return splits, (splits, kvh, b)
 
 
 def decode_attention_cuda(
@@ -28,7 +39,8 @@ def decode_attention_cuda(
     window: int = 0,
     softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Launch K5 -> (B, KV, G, Dh) in q's dtype."""
+    """Launch K5 -> (B, KV, G, Dh) in q's dtype: one cluster launch,
+    planned by ``decode_plan``."""
     b, kvh, g, dh = q.shape
     t = k.shape[1]
     require(WHERE, tuple(k.shape[::2]) == (b, kvh) and k.shape[3] == dh,
@@ -38,10 +50,11 @@ def decode_attention_cuda(
     check_linear_kv(WHERE, q, k, v, (
         ("q_pos", q_pos, (b,)), ("kv_pos", kv_pos, (b, t)), ("kv_valid", kv_valid, (b, t)),
     ))
+    splits, _ = decode_plan(b, kvh, t)
     out = torch.empty_like(q)
     err = load_library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-        kv_valid.data_ptr(), out.data_ptr(), b, t, kvh, g, dh, int(window),
+        kv_valid.data_ptr(), out.data_ptr(), b, t, kvh, g, dh, splits, int(window),
         float(softcap), 1.0 / (dh ** 0.5), DTYPE_CODES[q.dtype], stream_ptr(q),
     )
     check(err, "repro_decode_attention")

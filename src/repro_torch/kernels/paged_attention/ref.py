@@ -7,11 +7,13 @@ The CPU tests hold them to the JAX package; ``chip_smoke.py`` holds the
 CUDA kernels to them on the card. They match the kernels' conventions: a
 lane with no valid key slot (all ``kv_pos < 0`` or ``> q_pos``) returns
 exact zeros, and a lane whose whole shared run is masked leaves the
-cascade's stats at ``m = -1e30, l = 0, acc = 0`` (never ``-inf``)."""
+cascade's stats at ``m = -1e30, l = 0, acc = 0`` (never ``-inf``).
+``merge_stats`` is the merge by which the split walks of K2 and K5 combine
+their blocks' partial states."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +42,23 @@ def _stats(logits: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> Stats:
     return acc, m, p.sum(dim=-1, keepdim=True)
 
 
+def merge_stats(parts: Sequence[Stats]) -> Stats:
+    """The merge a split walk's thread-block cluster performs
+    (``csrc/split_decode.cuh``), parts summed in the order given:
+    ``m = max m_i``, ``l = sum l_i e^(m_i - m)``, ``acc = sum acc_i
+    e^(m_i - m)``. An empty part (``m = -1e30, l = 0, acc = 0``) adds
+    nothing, and parts that are all empty merge to the empty state."""
+    m = parts[0][1]
+    for _, mi, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(parts[0][2])
+    for ai, mi, li in parts:
+        scale = torch.exp(mi - m)
+        acc = acc + ai * scale
+        l = l + li * scale
+    return acc, m, l
+
+
 def shared_prefix_ref(
     q: torch.Tensor,             # (B, KV, G, Dh) — rope'd queries, per KV head
     pool_k: torch.Tensor,        # (P, page_size, KV, Dh) — shared pool, one layer
@@ -49,12 +68,15 @@ def shared_prefix_ref(
     *,
     window: int = 0,
     softcap: float = 0.0,
+    span: Optional[Tuple[int, int]] = None,
 ) -> Stats:
     """What ``shared_prefix_pallas`` computes: every lane against the run
     of pages that every lane's table starts with. The run is full and
     resident by contract, so slot == position and the only mask is causal
     (``kp <= q_pos``) plus the window. Returns the unnormalised partial
-    softmax state ``(acc, m, l)`` for the suffix pass to continue from."""
+    softmax state ``(acc, m, l)`` for the suffix pass to continue from.
+    With ``span = (lo, hi)`` only run tokens in ``[lo, hi)`` are attended:
+    the state of one split of the kernel's walk."""
     kvh, dh = pool_k.shape[2], pool_k.shape[3]
     pages = shared_pages.long()
     k = pool_k[pages].reshape(1, -1, kvh, dh)        # (1, S*ps, KV, Dh)
@@ -65,6 +87,8 @@ def shared_prefix_ref(
     mask = kp <= qp
     if window > 0:
         mask = mask & (qp - kp < window)
+    if span is not None:
+        mask = mask & (kp >= span[0]) & (kp < span[1])
     return _stats(logits, mask[:, None, None, :], v)
 
 

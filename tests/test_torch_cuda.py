@@ -386,6 +386,132 @@ def test_decode_kernel_reads_kv_pos(dev):
 
 
 # ---------------------------------------------------------------------------
+# The split walk of K2 and K5: cluster launches of 1-8 blocks per (KV head,
+# lanes) whose partial states merge in a fixed order
+# ---------------------------------------------------------------------------
+
+BATCHES = [1, 3, 8, 64]
+
+
+def _force_splits(monkeypatch, module, splits):
+    """Make the binding's planner return ``splits`` (None: the planner's own
+    choice)."""
+    if splits is not None:
+        monkeypatch.setattr(module, "plan_splits", lambda blocks, n_tokens: splits)
+
+
+# K2 over a 37-page run (592 tokens: 4.6 tiles, no multiple of splits x 128),
+# each lane's query position drawn in turn from the tuple
+K2_SPLIT_CASES = {
+    # queries inside the first tile, mid-run, at its end and past it: the
+    # last splits are empty for a B = 1 block
+    "causal": (0, (40, 300, 591, 700)),
+    # lanes at 100 and 560 attend tokens 37-100 and 497-560: the middle
+    # splits are empty for the block; a lane at 700 sees none of the run
+    "window-middle": (64, (100, 560, 700)),
+    # every lane past the run by more than the window: nothing attended
+    "all-masked": (50, (700, 710, 750)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("case", list(K2_SPLIT_CASES))
+def test_shared_prefix_split_edges(dev, monkeypatch, dtype, B, case):
+    """K2 with 1 split, with 8 and with the planner's choice, each against
+    the plain version on (acc, m, l); the same inputs twice give identical
+    bits (the merge's fixed order); a lane whose whole run is masked keeps
+    m = -1e30, l = 0, acc = 0."""
+    from repro_torch.kernels.paged_attention import kernel, shared_prefix, shared_prefix_ref
+
+    window, positions = K2_SPLIT_CASES[case]
+    H, KV, Dh, ps, n_shared = 16, 16, 64, 16, 37
+    gen = torch.Generator(device=dev).manual_seed(B)
+    q = torch.randn(B, KV, H // KV, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(1 + n_shared, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(1 + n_shared, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    sp = torch.arange(1, 1 + n_shared, dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([positions[b % len(positions)] for b in range(B)],
+                         dtype=torch.int32, device=dev)
+    want = shared_prefix_ref(q, pk, pv, sp, q_pos, window=window)
+    for splits in (1, 8, None):
+        with monkeypatch.context() as mp:
+            _force_splits(mp, kernel, splits)
+            got = shared_prefix(q, pk, pv, sp, q_pos, window=window)
+            again = shared_prefix(q, pk, pv, sp, q_pos, window=window)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a), splits
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-4,
+                                       msg=lambda m, s=splits: f"splits {s}: {m}")
+        masked = q_pos >= n_shared * ps - 1 + window if window else torch.zeros_like(q_pos) > 0
+        if masked.any():
+            assert (got[1][masked] == -1e30).all() and (got[2][masked] == 0).all()
+            assert (got[0][masked] == 0).all()
+    if case == "all-masked":
+        assert masked.all()
+
+
+# K5 against T = 1000 slots (7.8 tiles); lane b takes the (valid slots,
+# query position) of entry b of the tuple in turn, and with B >= 3 the
+# last lane has no valid slot at all
+K5_SPLIT_CASES = {
+    # queries at 0, 128, 639 and 999: the last splits are empty for most lanes
+    "causal": (0, (((0, 1),), 0), (((0, 129),), 128), (((0, 640),), 639),
+               (((0, 1000),), 999)),
+    # window 150 from 899 and from 400: the first splits are empty
+    "window": (150, (((0, 1000),), 899), (((0, 1000),), 400)),
+    # valid slots [0, 100) and [700, 900): the middle splits are empty
+    "hole": (0, (((0, 100), (700, 900)), 899), (((0, 100), (700, 900)), 950)),
+}
+
+
+def _k5_split_inputs(dev, B, H, KV, Dh, dtype, lanes, T=1000, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    valid = torch.zeros(B, T, dtype=torch.bool)
+    q_pos = torch.zeros(B, 1, dtype=torch.int32)
+    for b in range(B if B < 3 else B - 1):
+        spans, qp = lanes[b % len(lanes)]
+        for lo, hi in spans:
+            valid[b, lo:hi] = True
+        q_pos[b, 0] = qp
+    slot = torch.arange(T, dtype=torch.int32)[None, :].expand(B, T)
+    kv_pos = torch.where(valid, slot, torch.full_like(slot, -1)).contiguous()
+    return q, k, v, q_pos.to(dev), kv_pos.to(dev), valid.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("H,KV,Dh", [(16, 16, 64), (8, 2, 112)], ids=["paper", "gqa112"])
+@pytest.mark.parametrize("case", list(K5_SPLIT_CASES))
+def test_decode_split_edges(dev, monkeypatch, dtype, B, H, KV, Dh, case):
+    """K5 with 1 split, with 8 and with the planner's choice, each against
+    the plain version on every lane that sees a key; the same inputs twice
+    give identical bits; a lane with no valid slot writes zeros."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref, kernel
+
+    window, *lanes = K5_SPLIT_CASES[case]
+    args = _k5_split_inputs(dev, B, H, KV, Dh, dtype, lanes)
+    want = decode_attention_ref(*args, window=window)
+    rows = _read_rows(args[3], args[4], args[5], window)[:, 0]
+    for splits in (1, 8, None):
+        with monkeypatch.context() as mp:
+            _force_splits(mp, kernel, splits)
+            out = decode_attention(*args, window=window)
+            again = decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), splits
+        torch.testing.assert_close(out[rows].float(), want[rows].float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype], msg=lambda m, s=splits: f"splits {s}: {m}")
+        assert (out[~rows] == 0).all()
+    if B >= 3:
+        assert not rows[-1]
+
+
+# ---------------------------------------------------------------------------
 # K6 (the SSD chunk)
 # ---------------------------------------------------------------------------
 

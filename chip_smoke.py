@@ -13,12 +13,18 @@ non-zero):
 2. build    — compiles the CUDA kernels from ``src/repro_torch/csrc`` with
                nvcc (sm_90a) into ``build/kernels/``; prints build seconds
                and each kernel's register/shared-memory report (the split
-               kernels K2 and K5 by name: registers and spills), and reads
-               the machine code: the bf16 K3/K4 kernels must issue HMMA
-               (tensor-core) instructions, the f32 ones none;
-3. K1       — paged decode attention kernel vs its plain PyTorch version
-               (bf16, ps 16, MHA and GQA with window x softcap, ragged lanes
-               incl. an empty one), then timed at the main path's shape;
+               kernels K1, K2 and K5 by name: registers and spills), and
+               reads the machine code: the bf16 K3/K4 kernels and every K6
+               instantiation must issue HMMA (tensor-core; K6 TF32)
+               instructions, the f32 K3/K4 ones none;
+3. K1       — paged decode attention kernel (the split walk) vs its plain
+               PyTorch version (bf16, ps 16, MHA and GQA with window x
+               softcap, ragged lanes incl. an empty one; then every forced
+               split count 1/2/4/8 at ps 8/16/64 on ragged lanes, window x
+               softcap and the cascade's continuation, each run twice for
+               identical bits), printing each split plan; then timed at
+               the main path's B = 1 and the batched server's B = 8 single
+               pass against SDPA on the gathered view;
 4. K3       — chunked paged prefill kernel (bf16: the tensor-core kernel)
                vs its plain version (S = 256, p0 at 0 and mid-page, ragged
                true_len; then the tensor-core edges: S 1/15/17/150/333, p0
@@ -88,10 +94,10 @@ non-zero):
                a "pages" warm start prefilling only its suffix), and prime
                a third from token ids (a "tokens" warm start);
 14. K6      — the SSD chunk kernel vs its plain version (f32, all three
-               outputs) at Mamba2's (H 64, N 128) and Zamba2's (H 112,
-               N 64) full-width 1024-token shapes and a B = 2 ragged case,
-               the wrapper (kernel + inter-chunk chain) vs the plain
-               chunked SSD; then timed at both shapes;
+               outputs, two runs identical) at Mamba2's (H 64, N 128) and
+               Zamba2's (H 112, N 64) full-width 1024-token shapes and a
+               B = 2 ragged case, the wrapper (kernel + inter-chunk chain)
+               vs the plain chunked SSD; then timed at both shapes;
 15. mamba2-1.3b — the full-width Mamba2 (random bf16 weights from a seed)
                through TorchLLMService with bucket 128: 3 sessions x 2
                turns of 256-1024 context tokens, every turn a full prefill
@@ -102,6 +108,10 @@ non-zero):
 16. zamba2-7b — the same for the full-width Zamba2 hybrid: K6 81 times and
                K4 13 times per prefill (the profiled prefill: the
                tensor-core K4), K5 13 times per decode step;
+    ssm f32 — both SSM models in f32 (weights from the seed in f32, TF32
+               off; Mamba2 at its 48 layers, Zamba2 cut to its first 25):
+               a teacher-forced 1024 + 16-token turn through the kernel and
+               plain paths within SSM_F32_REL x the plain logits' std;
 17. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
@@ -150,6 +160,13 @@ SSM_LOGIT_REL = 0.6  # per-step logits of Mamba2 (48) / Zamba2 (81 + 13) bf16
                      # logits. Set before the first run on the card: CPU runs of
                      # both models at d_model 512 in bf16 gave 0.12-0.33 x std
                      # (bf16 residuals and a bf16-stored SSM state; PERF.md)
+SSM_F32_REL = 1e-3   # f32 teacher-forced logits of the SSM models (f32 weights, TF32
+                     # off), kernel vs plain path: max |diff| <= 1e-3 x the std of
+                     # the plain logits. Set before the first run on the card: CPU
+                     # runs in f32 (Mamba2 4 layers, Zamba2 7, 512 tokens, full
+                     # width) gave 1.2e-5 and 1.8e-5 x std, the kernel path's f64
+                     # SSD cumsum against the plain path's f32 one; one-pass TF32
+                     # products in K6 (relative error ~1e-3 in y) would not fit
 TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 tensor-core peak (f32 operands)
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 
@@ -190,18 +207,18 @@ def device_time_ms(fns, iters: int = 48) -> float:
 # K1: paged decode attention
 # ---------------------------------------------------------------------------
 
-def _paged_case(gen, lens, H, KV, Dh, dtype, dev, mp=None):
+def _paged_case(gen, lens, H, KV, Dh, dtype, dev, mp=None, ps=PS):
     import torch
 
     B = len(lens)
-    pages_of = lambda n: max(1, -(-n // PS))
+    pages_of = lambda n: max(1, -(-n // ps))
     mp = mp or max(pages_of(n) for n in lens)
     n_pages = 1 + sum(pages_of(n) for n in lens)
     q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
-    pk = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
-    pv = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
     table = torch.zeros(B, mp, dtype=torch.int32)
-    kv_pos = torch.full((B, mp * PS), -1, dtype=torch.int32)
+    kv_pos = torch.full((B, mp * ps), -1, dtype=torch.int32)
     used = 1
     for bi, n in enumerate(lens):
         for pj in range(pages_of(n)):
@@ -212,11 +229,49 @@ def _paged_case(gen, lens, H, KV, Dh, dtype, dev, mp=None):
     return q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)
 
 
+def _k1_plan_str(B, KV, mp, ps, start=0) -> str:
+    from repro_torch.kernels.paged_attention.kernel import paged_plan
+
+    splits, grid = paged_plan(B, KV, mp, ps, start)
+    return (f"B={B} KV={KV} MP={mp} ps={ps} start={start} -> splits {splits}, grid {grid} = "
+            f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
+
+
+class _forced_splits:
+    """Within the block, the split planners of K1 and K2
+    (``kernels/paged_attention/kernel.py``) choose ``splits``."""
+
+    def __init__(self, splits):
+        self.splits = splits
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_attention import kernel
+
+        self.saved = kernel.plan_splits
+        kernel.plan_splits = lambda blocks, n_tokens: self.splits
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.paged_attention import kernel
+
+        kernel.plan_splits = self.saved
+
+
+def _k1_check(name, out, again, want) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all(), name
+    assert torch.equal(out, again), f"K1 {name}: two runs differ"
+    e = (out.float() - want.float()).abs().max().item()
+    assert e <= K1_TOL, f"K1 {name}: {e} > {K1_TOL}"
+    return e
+
+
 def phase_k1(dev, n_layers: int) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda, paged_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
     err = 0.0
@@ -232,45 +287,95 @@ def phase_k1(dev, n_layers: int) -> dict:
         e = (out.float() - want.float()).abs().max().item()
         assert torch.isfinite(out.float()).all(), name
         assert (out[0] == 0).all(), f"K1 {name}: empty lane not exact zeros"
-        log(f"K1 {name}: max_abs_err {e:.3e} (bound {K1_TOL})")
+        log(f"K1 {name}: {_k1_plan_str(len(lens), KV, args[3].shape[1], PS)}; max_abs_err "
+            f"{e:.3e} (bound {K1_TOL})")
         assert e <= K1_TOL, f"K1 {name}: {e} > {K1_TOL}"
         err = max(err, e)
 
-    # main-path shape: B = 1, MHA 16 x 64, a 1024-token lane, one input set
-    # per layer
-    kv_len, H, KV, Dh = 1024, 16, 16, 64
-    sets = [_paged_case(gen, (kv_len,), H, KV, Dh, torch.bfloat16, dev) for _ in range(n_layers)]
-    prepared = []
-    for q, pk, pv, table, q_pos, kv_pos in sets:
-        qp = q_pos.reshape(1)
-        bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
-        prepared.append((q.reshape(1, KV, H // KV, Dh).contiguous(), pk, pv, table, bound,
-                         qp.contiguous(), kv_pos))
-    kernel_ms = device_time_ms([lambda a=a: paged_attention_cuda(*a) for a in prepared])
-    plain_ms = device_time_ms([lambda s=s: ref.paged_attention_ref(*s) for s in sets])
-    lib_args = []
-    for q, pk, pv, table, q_pos, kv_pos in sets:
-        k = pk[table.long()].reshape(1, -1, KV, Dh).transpose(1, 2).contiguous()
-        v = pv[table.long()].reshape(1, -1, KV, Dh).transpose(1, 2).contiguous()
-        mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
-        lib_args.append((q.transpose(1, 2).contiguous(), k, v, mask))
-    library_ms = device_time_ms(
-        [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
-         for a in lib_args]
-    )
-    tokens = kv_len                                          # visited (bound * ps)
-    nbytes = 2 * tokens * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (tokens + tokens // PS + 2)
-    flops = 4 * H * Dh * tokens
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"K1 main shape (B=1, kv_len {kv_len}): kernel_ms {kernel_ms:.5f} plain_ms "
-        f"{plain_ms:.5f} library_ms {library_ms:.5f} bound_ms {bound_ms:.6f} ({bound_by})")
-    return {
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:310",
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }
+    # the split walk's edges: every split count at page sizes 8, 16 and 64,
+    # on ragged lanes with an empty one (window x softcap too) and in the
+    # cascade's continuation (queries inside the 256-token run: bound <=
+    # start, the seed alone; at its end; past it), each run twice
+    edge_errs = {}
+    for ps in (8, 16, 64):
+        lens = (0, 1, 2 * ps + 3, 300, 777, 1024)
+        ragged = _paged_case(gen, lens, 16, 4, 64, torch.bfloat16, dev, ps=ps)
+        mha = _paged_case(gen, lens, 16, 16, 64, torch.bfloat16, dev, ps=ps)
+        cont, sp = _shared_case(gen, 256 // ps, (-100, -1, 1, 21, 300), 16, 16, 64,
+                                torch.bfloat16, dev, ps=ps)
+        for splits in (1, 2, 4, 8):
+            with _forced_splits(splits):
+                for label, args, window, cap in (("ragged", ragged, 0, 0.0),
+                                                 ("window x softcap", ragged, 200, 30.0),
+                                                 ("mha ragged", mha, 0, 0.0)):
+                    run = lambda: ops.paged_attention(*args, window=window, softcap=cap)  # noqa: E731
+                    e = _k1_check(f"{label} ps {ps} splits {splits}", run(), run(),
+                                  ref.paged_attention_ref(*args, window=window, softcap=cap))
+                    edge_errs[f"{label} ps {ps} splits {splits}"] = e
+                run = lambda: ops.paged_attention(*cont, sp)  # noqa: E731
+                e = _k1_check(f"continuation ps {ps} splits {splits}", run(), run(),
+                              ref.paged_attention_ref(*cont))
+                edge_errs[f"continuation ps {ps} splits {splits}"] = e
+    err = max(err, max(edge_errs.values()))
+    log(f"K1 split edges (forced splits 1/2/4/8 x ps 8/16/64 x ragged GQA 16/4 and MHA 16/16, "
+        f"window x softcap, continuation; two runs identical): max_abs_err {max(edge_errs.values()):.3e} "
+        f"(bound {K1_TOL})")
+
+    out = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention/kernel.py:310", "max_abs_err": err}
+    # the main path's shapes, MHA 16 x 64, one input set per layer: B = 1
+    # over a 1024-token lane (the engine), and B = 8 over 1048-1096 tokens
+    # each (the batched server's lanes, taken by the single pass)
+    Hh, KV, Dh = 16, 16, 64
+    for shape, lens in (("B=1", (1024,)), ("B=8", tuple(1024 + s for s in (24, 31, 38, 45, 52,
+                                                                            59, 66, 72)))):
+        B = len(lens)
+        sets = [_paged_case(gen, lens, Hh, KV, Dh, torch.bfloat16, dev) for _ in range(n_layers)]
+        mp = sets[0][3].shape[1]
+        splits, grid = paged_plan(B, KV, mp, PS)
+        log(f"K1 {shape}: {_k1_plan_str(B, KV, mp, PS)}")
+        if B == 1:
+            assert splits > 1, "K1 must split the walk across a cluster at B = 1"
+        prepared = []
+        for q, pk, pv, table, q_pos, kv_pos in sets:
+            qp = q_pos.reshape(B)
+            bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
+            prepared.append((q.reshape(B, KV, Hh // KV, Dh).contiguous(), pk, pv, table, bound,
+                             qp.contiguous(), kv_pos))
+        # the launch the main path makes (MHA, planned splits), held to the
+        # plain version on the same inputs
+        first, again = (paged_attention_cuda(*prepared[0]) for _ in range(2))
+        e = _k1_check(f"{shape} main path ({splits} splits)", first.reshape(B, 1, Hh, Dh),
+                      again.reshape(B, 1, Hh, Dh), ref.paged_attention_ref(*sets[0]))
+        out["max_abs_err"] = max(out["max_abs_err"], e)
+        kernel_ms = device_time_ms([lambda a=a: paged_attention_cuda(*a) for a in prepared])
+        plain_ms = device_time_ms([lambda s=s: ref.paged_attention_ref(*s) for s in sets])
+        lib_args = []
+        for q, pk, pv, table, q_pos, kv_pos in sets:
+            k = pk[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2).contiguous()
+            v = pv[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2).contiguous()
+            mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
+            lib_args.append((q.transpose(1, 2).contiguous(), k, v, mask))
+        library_ms = device_time_ms(
+            [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
+             for a in lib_args])
+        visited = sum(lens)                                   # bound * ps per lane
+        nbytes = (2 * visited * KV * Dh * 2 + 2 * B * Hh * Dh * 2
+                  + 4 * (visited + sum(-(-n // PS) for n in lens) + 2 * B))
+        bound_ms, bound_by = _bound(nbytes, 4 * Hh * Dh * visited)
+        log(f"K1 {shape} (tokens {min(lens)}-{max(lens)}): kernel_ms {kernel_ms:.5f} plain_ms "
+            f"{plain_ms:.5f} library_ms {library_ms:.5f} (SDPA on the gathered view) bound_ms "
+            f"{bound_ms:.6f} ({bound_by}); max_abs_err {e:.3e} (bound {K1_TOL}); "
+            f"two runs identical; "
+            f"{'below' if kernel_ms < library_ms else 'NOT below'} SDPA")
+        stats = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, splits=splits, grid=grid)
+        if B == 1:
+            out.update(stats)
+        else:
+            out.update({f"b8_{k}": v for k, v in stats.items()})
+    return out
 
 
 def _bound(nbytes: float, flops: float):
@@ -386,31 +491,31 @@ def phase_k3(dev, n_layers: int) -> dict:
 # K2: shared-prefix cascade pass (and K1's continuation)
 # ---------------------------------------------------------------------------
 
-def _shared_case(gen, n_shared, suffixes, H, KV, Dh, dtype, dev):
+def _shared_case(gen, n_shared, suffixes, H, KV, Dh, dtype, dev, ps=PS):
     """Lanes whose tables all start with the same ``n_shared`` pages; lane
-    b holds ``n_shared * PS + suffixes[b]`` tokens (a negative suffix puts
+    b holds ``n_shared * ps + suffixes[b]`` tokens (a negative suffix puts
     its query inside the run) and owns pages for its positive suffix.
     Returns (q, pool_k, pool_v, table, q_pos, kv_pos), shared pages."""
     import torch
 
     B = len(suffixes)
-    pages_of = lambda n: -(-max(n, 0) // PS)
+    pages_of = lambda n: -(-max(n, 0) // ps)
     mp = n_shared + max(1, max(pages_of(n) for n in suffixes))
     n_pages = 1 + n_shared + sum(pages_of(n) for n in suffixes)
     q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
-    pk = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
-    pv = torch.randn(n_pages, PS, KV, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
     table = torch.zeros(B, mp, dtype=torch.int32)
     table[:, :n_shared] = torch.arange(1, 1 + n_shared, dtype=torch.int32)
-    kv_pos = torch.full((B, mp * PS), -1, dtype=torch.int32)
+    kv_pos = torch.full((B, mp * ps), -1, dtype=torch.int32)
     used = 1 + n_shared
     for bi, sfx in enumerate(suffixes):
         for pj in range(pages_of(sfx)):
             table[bi, n_shared + pj] = used
             used += 1
-        n = n_shared * PS + sfx
+        n = n_shared * ps + sfx
         kv_pos[bi, :n] = torch.arange(n, dtype=torch.int32)
-    q_pos = torch.tensor([[n_shared * PS + s - 1] for s in suffixes], dtype=torch.int32)
+    q_pos = torch.tensor([[n_shared * ps + s - 1] for s in suffixes], dtype=torch.int32)
     shared = torch.arange(1, 1 + n_shared, dtype=torch.int32, device=dev)
     return (q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)), shared
 
@@ -938,6 +1043,7 @@ def phase_batched(dev):
                                     t / 4, c // 4) for k, t, c in rows if "repro_torch" in k]}
         log(f"profile decode_step_b8: {json.dumps(entry)}")
         assert_served_by(entry, "shared_prefix_split", cfg.n_layers)
+        assert_served_by(entry, "paged_attention_split", cfg.n_layers)
     return svc, launches, summary, equivalence
 
 
@@ -1215,6 +1321,7 @@ def phase_profile(svc, last_turn, dev) -> dict:
     }
     report = {name: profile_work(name, fn, per) for name, (fn, per) in work.items()}
     assert_served_by(report["prefill_chunk_256"], "chunked_prefill_mma", cfg.n_layers)
+    assert_served_by(report["decode_step"], "paged_attention_split", cfg.n_layers)
     return report
 
 
@@ -1559,8 +1666,9 @@ def phase_k6(dev) -> dict:
     (kernel + chain) against the plain chunked SSD, then K6 timed at both
     shapes with inputs cycled past L2."""
     import torch
+    from repro_torch.kernels.build import device_sms
     from repro_torch.kernels.ssd import ops, ref
-    from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda, ssd_plan
     from repro_torch.models.ssm import ssd_reference
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1573,14 +1681,16 @@ def phase_k6(dev) -> dict:
         x, dt, A, Bv, Cv = _ssd_case(gen, B, L, H, P, N, dev, ragged)
         args = (x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous())
         got = ssd_chunk_cuda(*args, Q)
+        again = ssd_chunk_cuda(*args, Q)
         want = ref.ssd_chunk_ref(*args, Q)
         torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), f"K6 {label}: two runs differ"
         for name, g, w in zip(("y_intra", "states", "dA_cs"), got, want):
             assert torch.isfinite(g).all(), (label, name)
             e = (g - w).abs().max().item()
             excess = ((g - w).abs() - K6_TOL * (1 + w.abs())).max().item()
             log(f"K6 {label} {name}: max_abs_err {e:.3e}, max |ref| {w.abs().max().item():.3e} "
-                f"(bound {K6_TOL} x (1 + |ref|))")
+                f"(bound {K6_TOL} x (1 + |ref|)); two runs identical")
             assert excess <= 0, f"K6 {label} {name}: exceeds {K6_TOL} x (1 + |ref|) by {excess}"
             err = max(err, e)
         y, f = ops.ssd(x, dt, A, Bv, Cv, Q)
@@ -1596,6 +1706,9 @@ def phase_k6(dev) -> dict:
            "replaces": "src/repro/kernels/ssd/kernel.py:94", "max_abs_err": err,
            "library_ms": None}
     for label, B, L, H, P, N, _ in cases[:2]:
+        hg, grid = ssd_plan(B, L // Q, H, device_sms(dev))
+        log(f"K6 {label}: {hg} heads per block, grid {grid} = {grid[0] * grid[1] * grid[2]} "
+            f"blocks")
         sets = []
         for _ in range(6):       # each call moves ~50 MB: six sets are far past L2
             x, dt, A, Bv, Cv = _ssd_case(gen, B, L, H, P, N, dev)
@@ -1773,6 +1886,47 @@ def phase_ssm_model(dev, cfg, per_prefill: dict, per_decode: dict) -> dict:
     return summary
 
 
+def phase_ssm_f32(dev, cfg, n_layers: int) -> dict:
+    """One SSM-family model at full width in f32 (weights from seed 0 in
+    f32, TF32 off), depth cut to ``n_layers``: a 1024-token prompt and 16
+    forced tokens teacher-forced through the kernel path (K6; Zamba2's
+    shared attention block through the f32 K4/K5) and the plain path; max
+    |logit diff| <= SSM_F32_REL x the std of the plain logits. bf16 noise
+    (the serving checks' 0.6 x std) cannot hide a K6 fault here."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_params
+
+    name, full = f"{cfg.name} f32", cfg.n_layers
+    cfg = cfg.replace(n_layers=n_layers, param_dtype="float32", compute_dtype="float32",
+                      attn_impl="cuda")
+    params = init_params(cfg, seed=0, device=dev)
+    seq = np.random.default_rng(1).integers(300, cfg.vocab_size, size=1040).tolist()
+    ids, forced = seq[:1024], seq[1024:]
+    counters = _ssm_counters()
+    for c in counters.values():
+        c.launches = 0
+    kern = _ssm_teacher_forced(cfg, params, ids, forced, dev)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = _ssm_teacher_forced(cfg.replace(attn_impl="reference"), params, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert kern.shape == plain.shape == (17, cfg.vocab_size), kern.shape
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    assert launches["ssd"] == n_layers, launches
+    diff = (kern - plain).abs().max().item()
+    std = plain.std().item()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"{name}: {n_layers} of {full} layers, teacher-forced 1024 + 16 tokens: max |logit diff| kernel vs plain {diff:.4e} = "
+        f"{diff / std:.3e} x logit std {std:.4f} (bound {SSM_F32_REL} x std), argmax "
+        f"agreement {agree:.3f}; launches {launches}")
+    assert diff <= SSM_F32_REL * std, f"{name}: logits differ by {diff} > {SSM_F32_REL} x {std}"
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": n_layers, "max_logit_diff": diff, "logit_std": std,
+            "bound": SSM_F32_REL * std, "argmax_agreement": agree, "launches": launches}
+
+
 def _dense_prefilled(cfg, params, ids, dev):
     """Full prefill of ``ids`` into a fresh 2048-slot cache (bucket 64, as
     the engine's)."""
@@ -1808,19 +1962,21 @@ def phase_equivalence(svc, last_turn, dev) -> float:
     return diff
 
 
+SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
+
+
 def split_kernel_resources(build, ptxas: str) -> list:
     """(kernel, registers, spills) of every instantiation of the split-walk
-    kernels K2 (``shared_prefix_split``) and K5 (``decode_attention_split``)
-    from nvcc's ``-Xptxas -v`` report, names demangled by cu++filt where it
-    sits beside nvcc."""
+    kernels K1 (``paged_attention_split``), K2 (``shared_prefix_split``) and
+    K5 (``decode_attention_split``) from nvcc's ``-Xptxas -v`` report, names
+    demangled by cu++filt where it sits beside nvcc."""
     import re
 
     found, name = [], None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if re.search("shared_prefix_split|decode_attention_split",
-                                           m.group(1)) else None
+            name = m.group(1) if re.search("|".join(SPLIT_KERNELS), m.group(1)) else None
             spills = None
         elif name and "spill" in line:
             spills = line.strip().split(", ", 1)[1]
@@ -1833,17 +1989,16 @@ def split_kernel_resources(build, ptxas: str) -> list:
                                capture_output=True, text=True).stdout.splitlines()
         for f, n in zip(found, names):
             f[0] = n.replace("repro_torch::(anonymous namespace)::", "")
-    assert {k for k in ("shared_prefix_split", "decode_attention_split")
-            if any(k in f[0] for f in found)} == {"shared_prefix_split",
-                                                  "decode_attention_split"}, found
+    assert {k for k in SPLIT_KERNELS if any(k in f[0] for f in found)} == set(SPLIT_KERNELS), found
     return found
 
 
 def sass_tensor_core_check(build) -> None:
     """Read the built library's machine code (cuobjdump, beside nvcc): every
-    instantiation of the bf16 prefill kernels (``*_mma``) must issue
-    tensor-core instructions (HMMA) and the f32 ones (``*_simt``) none.
-    Without cuobjdump this is reported as not checked."""
+    instantiation of the bf16 prefill kernels (``*_mma``) and of the SSD
+    chunk (``ssd_chunk_mma``, TF32 operands) must issue tensor-core
+    instructions (HMMA) and the f32 prefill ones (``*_simt``) none. Without
+    cuobjdump this is reported as not checked."""
     tool = Path(build._nvcc()).resolve().parent / "cuobjdump"
     if not tool.exists():
         log("sass: cuobjdump not found beside nvcc, tensor-core instructions not checked")
@@ -1853,13 +2008,16 @@ def sass_tensor_core_check(build) -> None:
     hmma = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0]
-        for kernel in ("chunked_prefill_mma", "flash_attention_mma",
+        for kernel in ("chunked_prefill_mma", "flash_attention_mma", "ssd_chunk_mma",
                        "chunked_prefill_simt", "flash_attention_simt"):
             if kernel in name:
                 hmma.setdefault(kernel, []).append(block.count(" HMMA."))
+        if "ssd_chunk_mma" in name:
+            assert " HMMA.1688.F32.TF32" in block, name
     log(f"sass: HMMA instructions per instantiation {json.dumps(hmma)}")
-    for kernel in ("chunked_prefill_mma", "flash_attention_mma"):
+    for kernel in ("chunked_prefill_mma", "flash_attention_mma", "ssd_chunk_mma"):
         assert hmma.get(kernel) and min(hmma[kernel]) > 0, (kernel, hmma)
+    assert len(hmma["ssd_chunk_mma"]) == 8, hmma      # N 16-128 x P 32, 64
     for kernel in ("chunked_prefill_simt", "flash_attention_simt"):
         assert hmma.get(kernel) and max(hmma[kernel]) == 0, (kernel, hmma)
 
@@ -1925,17 +2083,22 @@ def main() -> int:
                             {"ssd": ZAMBA2_7B.n_layers, "flash_attention": n_shared},
                             {"decode_attention": n_shared})
     k6["launches"] = ssm["launches"]["ssd"] + zamba["launches"]["ssd"]
+    # f32 kernel vs plain: Mamba2 at full depth, Zamba2 cut to its first 25
+    # layers (4 shared-attention invocations; 9.3 GB of f32 weights)
+    ssm_f32 = {"mamba2": phase_ssm_f32(dev, MAMBA2_1_3B, MAMBA2_1_3B.n_layers),
+               "zamba2": phase_ssm_f32(dev, ZAMBA2_7B, 25)}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": dict(summary, max_logit_diff=diff,
-                                        launches_single_stream=launches)}))
+                                        launches_single_stream=launches), "k1_extra": {
+        k: v for k, v in k1.items() if k not in keys}}))
     print(json.dumps({"batched_path": dict(bsummary, **beq, k2_extra={
         k: v for k, v in k2.items() if k not in keys}), "migration": migration}))
     print(json.dumps({"dense_path": dsummary, "k4_extra": {
         k: v for k, v in k4.items() if k not in keys}, "k5_extra": {
         k: v for k, v in k5.items() if k not in keys}}))
-    print(json.dumps({"ssm_path": ssm, "zamba_path": zamba, "k6_extra": {
+    print(json.dumps({"ssm_path": ssm, "zamba_path": zamba, "ssm_f32": ssm_f32, "k6_extra": {
         k: v for k, v in k6.items() if k not in keys}}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())

@@ -109,8 +109,7 @@ def k2_phases(dev, gen) -> None:
 
     lib = _build("shared_prefix", (build.CSRC / "shared_prefix.cu").read_text(),
                  "  // only the tokens some row attends", "        l_o[o] = l;\n      });\n}")
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_shared_prefix.argtypes = [vp] * 8 + [i] * 10 + [f, f, i, vp]
+    build.declare(lib, "repro_shared_prefix")
     sfx = (24, 31, 38, 45, 52, 59, 66, 72)   # the batched server's lanes past a 64-page run
     for B in (1, 8):
         sets = [cs._shared_case(gen, 64, sfx[:B], 16, 16, 64, torch.bfloat16, dev)
@@ -136,8 +135,7 @@ def k5_phases(dev, gen) -> None:
     lib = _build("decode_attention", (build.CSRC / "decode_attention.cu").read_text(),
                  "  for (int base = first; base < hi; base += kThreads) {",
                  "      [](int, float, float) {});\n}")
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
+    build.declare(lib, "repro_decode_attention")
     for B, H, Dh in ((1, 16, 64), (8, 16, 64), (1, 32, 112)):
         sets = [cs._linear_case(gen, (1249,) * B, (1,) * B, 1, 2048, H, H, Dh, torch.bfloat16,
                                 dev) for _ in range(24)]

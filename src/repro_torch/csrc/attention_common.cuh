@@ -1,5 +1,5 @@
-// Helpers shared by the paged attention kernels: 16-byte vector loads that
-// widen bf16/f32 to f32, narrowing stores, and warp reductions.
+// Helpers shared by the attention kernels: 16-byte vector loads that widen
+// bf16/f32 to f32, narrowing stores, and the logit softcap.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,9 +37,6 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -47,18 +44,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 __device__ __forceinline__ float apply_softcap(float x, float cap) {

@@ -1,6 +1,7 @@
-// Split-walk decode attention for Hopper (sm_90a): the pieces shared by the
-// shared-prefix pass (csrc/shared_prefix.cu, K2) and flash decode
-// (csrc/decode_attention.cu, K5).
+// Split-walk decode attention for Hopper (sm_90a): the pieces shared by
+// paged decode (csrc/paged_attention.cu, K1), the shared-prefix pass
+// (csrc/shared_prefix.cu, K2) and flash decode (csrc/decode_attention.cu,
+// K5).
 //
 // A decode query has one row per head (R = lanes x G rows per block), so a
 // block per (KV head, lanes) leaves most of the card idle: 16 blocks for
@@ -21,7 +22,8 @@
 // 0..splits-1), so a result is bit-identical from run to run. The merge is
 // the online softmax's own, the one K1's continuation applies to K2's
 // stats:
-//   m = max_i m_i,  l = sum_i l_i e^(m_i - m),  acc = sum_i acc_i e^(m_i - m).
+//   m = max_i m_i,  l = sum_i l_i e^(m_i - m),  acc = sum_i acc_i e^(m_i - m);
+// K1's continuation seed is one more state, merged by rank 0 first.
 // An empty split (all its tokens masked or out of range) keeps m = -1e30,
 // l = 0, acc = 0, so a fully masked row stays exactly at that state and no
 // NaN can arise: -1e30 is finite, never -inf.
@@ -472,20 +474,42 @@ __device__ __forceinline__ void block_merge(const Smem<T, DH, NW>& sm, int R,
   }
 }
 
+// No continuation seed (K2, K5).
+struct NoSeed {
+  __device__ bool on() const { return false; }
+  __device__ float m(int) const { return kNegInf; }
+  __device__ float l(int) const { return 0.f; }
+  __device__ float acc(int) const { return 0.f; }
+};
+
+// K1's continuation seed: the shared-prefix pass's f32 state of the
+// block's R rows (acc R x DH, m and l R each), or none when acc_ is null.
+struct Seed {
+  const float* acc_;
+  const float* m_;
+  const float* l_;
+  __device__ bool on() const { return acc_ != nullptr; }
+  __device__ float m(int r) const { return m_[r]; }
+  __device__ float l(int r) const { return l_[r]; }
+  __device__ float acc(int c) const { return acc_[c]; }
+};
+
 // The cluster's blocks' states -> the merged state, emitted by rank 0 as
 // cell(c, row, acc, l) for every cell c of the R x DH rows and row(r, m, l)
 // for every row; every block of the cluster calls it after block_merge.
 // Ranks 1..S-1 push (bacc, bm, bl) into rank 0's `rx` with st.async; rank 0
-// waits on its mbarrier for all of it and merges ranks in order. A cluster
-// of one block emits its own state.
-template <typename T, int DH, int NW, typename Cell, typename Row>
-__device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R, Cell cell,
-                                              Row row) {
+// waits on its mbarrier for all of it and merges in a fixed order: the
+// seed (when there is one), then ranks 0..S-1. A cluster of one block with
+// no seed emits its own state.
+template <typename T, int DH, int NW, typename SeedT, typename Cell, typename Row>
+__device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R,
+                                              const SeedT& seed, Cell cell, Row row) {
   constexpr int NT = Smem<T, DH, NW>::kThreads;
   const int S = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
   const int RD = R * DH, stride = Smem<T, DH, NW>::stride(R);
+  const bool seeded = seed.on();
   __syncthreads();  // block_merge's (bacc, bm, bl)
-  if (S == 1) {
+  if (S == 1 && !seeded) {
     for (int c = tid; c < RD; c += NT) {
       const int r = c / DH;
       cell(c, r, sm.bacc[c], sm.bl[r]);
@@ -493,7 +517,7 @@ __device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R, 
     for (int r = tid; r < R; r += NT) row(r, sm.bm[r], sm.bl[r]);
     return;
   }
-  cluster_wait();  // rank 0's mbarrier is armed (every block has begun)
+  if (S > 1) cluster_wait();  // rank 0's mbarrier is armed (every block has begun)
   if (rank != 0) {
     uint32_t dst, bar;
     asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n"
@@ -519,7 +543,7 @@ __device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R, 
   } else {
     // every thread waits (acquiring the pushed bytes); a lost push would
     // leave the barrier open: fail loudly, never hang
-    uint32_t done = 0;
+    uint32_t done = S == 1;
     for (long long spin = 0; !done; ++spin) {
       asm volatile(
           "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
@@ -529,37 +553,50 @@ __device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R, 
           : "memory");
       if (spin > (1LL << 24)) __trap();
     }
-    // per row: the merged m and l, and each rank's scale e^(m_s - m) (in
-    // the free per-warp rows wm.., (S + 2) R <= 3 NW R floats)
+    // per row: the merged m and l, and the scale e^(m_s - m) of the seed
+    // (slot 0) and of each rank (slots 1..S), in the free per-warp rows
+    // wm.. ((S + 3) R <= 3 NW R floats)
     const float* rx = sm.rx;
     float* sc = sm.wm;
     for (int r = tid; r < R; r += NT) {
-      float m = sm.bm[r];
+      const float ms = seeded ? seed.m(r) : kNegInf;
+      float m = fmaxf(ms, sm.bm[r]);
       for (int s = 1; s < S; ++s) m = fmaxf(m, rx[(s - 1) * stride + RD + 2 * r]);
-      float x = expf(sm.bm[r] - m);
+      float x = seeded ? expf(ms - m) : 0.f;
       sc[r] = x;
-      float l = sm.bl[r] * x;
+      float l = seeded ? seed.l(r) * x : 0.f;
+      x = expf(sm.bm[r] - m);
+      sc[R + r] = x;
+      l += sm.bl[r] * x;
       for (int s = 1; s < S; ++s) {
         x = expf(rx[(s - 1) * stride + RD + 2 * r] - m);
-        sc[s * R + r] = x;
+        sc[(s + 1) * R + r] = x;
         l += rx[(s - 1) * stride + RD + 2 * r + 1] * x;
       }
-      sc[S * R + r] = m;
-      sc[(S + 1) * R + r] = l;
+      sc[(S + 1) * R + r] = m;
+      sc[(S + 2) * R + r] = l;
     }
     __syncthreads();
     for (int c = tid; c < RD; c += NT) {
       const int r = c / DH;
-      float a = sm.bacc[c] * sc[r];
-      for (int s = 1; s < S; ++s) a += rx[(s - 1) * stride + c] * sc[s * R + r];
-      cell(c, r, a, sc[(S + 1) * R + r]);
+      float a = seeded ? seed.acc(c) * sc[r] : 0.f;
+      a += sm.bacc[c] * sc[R + r];
+      for (int s = 1; s < S; ++s) a += rx[(s - 1) * stride + c] * sc[(s + 1) * R + r];
+      cell(c, r, a, sc[(S + 2) * R + r]);
     }
-    for (int r = tid; r < R; r += NT) row(r, sc[S * R + r], sc[(S + 1) * R + r]);
+    for (int r = tid; r < R; r += NT) row(r, sc[(S + 1) * R + r], sc[(S + 2) * R + r]);
   }
+  if (S == 1) return;
   // the pushes have landed before any block leaves
   __syncwarp();
   cluster_arrive_relaxed();
   cluster_wait();
+}
+
+template <typename T, int DH, int NW, typename Cell, typename Row>
+__device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R, Cell cell,
+                                              Row row) {
+  cluster_merge(sm, R, NoSeed(), cell, row);
 }
 
 // Launch `kern` with blocks of NW warps on grid (splits, y, z), clusters of

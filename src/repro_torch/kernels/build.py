@@ -108,33 +108,35 @@ def build() -> Path:
     return out
 
 
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every C entry point's argument types: c_void_p for each pointer and the
+# stream, c_int for each int, c_float for each float; each returns an int
+ARGTYPES = {
+    "repro_paged_attention": [_VP] * 11 + [_I] * 10 + [_F, _F, _I, _VP],
+    "repro_chunked_prefill": [_VP] * 7 + [_I] * 9 + [_F, _F, _I, _VP],
+    "repro_shared_prefix": [_VP] * 8 + [_I] * 10 + [_F, _F, _I, _VP],
+    "repro_flash_attention": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
+    "repro_decode_attention": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
+    "repro_ssd_chunk": [_VP] * 8 + [_I] * 7 + [_VP],
+}
+
+
+def declare(lib: ctypes.CDLL, name: str) -> None:
+    """Set entry point ``name``'s argument and result types on ``lib``."""
+    fn = getattr(lib, name)
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = _I
+
+
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
-    point's argument types declared: ``c_void_p`` for each pointer and the
-    stream, ``c_int`` for each int, ``c_float`` for each float."""
+    point's argument types declared (``ARGTYPES``)."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.repro_paged_attention.argtypes = (
-                [vp] * 11 + [i] * 9 + [f, f, i, vp]
-            )
-            lib.repro_paged_attention.restype = i
-            lib.repro_chunked_prefill.argtypes = (
-                [vp] * 7 + [i] * 9 + [f, f, i, vp]
-            )
-            lib.repro_chunked_prefill.restype = i
-            lib.repro_shared_prefix.argtypes = (
-                [vp] * 8 + [i] * 10 + [f, f, i, vp]
-            )
-            lib.repro_shared_prefix.restype = i
-            lib.repro_flash_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
-            lib.repro_flash_attention.restype = i
-            lib.repro_decode_attention.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
-            lib.repro_decode_attention.restype = i
-            lib.repro_ssd_chunk.argtypes = [vp] * 8 + [i] * 6 + [vp]
-            lib.repro_ssd_chunk.restype = i
+            for name in ARGTYPES:
+                declare(lib, name)
             _lib = lib
     return _lib
 
@@ -153,3 +155,8 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

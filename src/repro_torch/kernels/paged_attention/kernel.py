@@ -3,7 +3,7 @@
 ``repro.kernels.paged_attention.kernel.paged_attention_pallas``) and the
 shared-prefix cascade pass (``csrc/shared_prefix.cu``, the counterpart of
 ``shared_prefix_pallas``), and the host's planner of the split decode walk
-that K2 and K5 share (``csrc/split_decode.cuh``).
+that K1, K2 and K5 share (``csrc/split_decode.cuh``).
 
 Takes the layouts the JAX kernel takes after its wrapper's reshapes, checks
 device, dtype, shape and contiguity, allocates the output with
@@ -60,6 +60,33 @@ def shared_prefix_plan(b: int, kvh: int, g: int, dh: int,
     return lanes, splits, (splits, kvh, tiles)
 
 
+def paged_plan(b: int, kvh: int, mp: int, ps: int,
+               start: int = 0) -> Tuple[int, Tuple[int, int, int]]:
+    """K1's launch: ``(splits, grid)``, the grid ``(splits, KV, B)`` with
+    clusters of ``(splits, 1, 1)``. The host sees only the widest walk a
+    lane can have, ``(MP - start) * ps`` tokens; each block cuts its own
+    lane's range on the device (``paged_split_ranges``)."""
+    splits = plan_splits(b * kvh, (mp - start) * ps)
+    return splits, (splits, kvh, b)
+
+
+def paged_lane_range(q_pos: int, bound: int, ps: int, start: int = 0,
+                     window: int = 0) -> Tuple[int, int]:
+    """The tokens ``[lo, hi)`` K1 walks for one lane: from the first page
+    walked or the window's first position, to the lane's page bound."""
+    lo = max(start * ps, q_pos - window + 1 if window > 0 else 0)
+    return lo, max(lo, bound * ps)
+
+
+def paged_split_ranges(q_pos: int, bound: int, ps: int, splits: int, start: int = 0,
+                       window: int = 0) -> List[Tuple[int, int]]:
+    """Each split's tokens of one lane: ``split_ranges`` of the lane's
+    range, offset by its start — the arithmetic of ``paged_attention_split``
+    in ``csrc/paged_attention.cu``."""
+    lo, hi = paged_lane_range(q_pos, bound, ps, start, window)
+    return [(lo + a, lo + b) for a, b in split_ranges(hi - lo, splits)]
+
+
 def _check_q_and_pools(where: str, q, pool_k, pool_v) -> None:
     _, kvh, _, dh = q.shape
     p, ps = pool_k.shape[0], pool_k.shape[1]
@@ -97,9 +124,9 @@ def paged_attention_cuda(
     start: int = 0,            # first page walked (the cascade's suffix pass)
     init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Launch K1 -> (B, KV, G, Dh) in q's dtype. With ``start``/``init`` it
-    continues the shared-prefix pass's f32 ``(acc, m, l)`` over pages
-    ``[start, bound)``."""
+    """Launch K1 -> (B, KV, G, Dh) in q's dtype: one cluster launch, planned
+    by ``paged_plan``. With ``start``/``init`` it continues the
+    shared-prefix pass's f32 ``(acc, m, l)`` over pages ``[start, bound)``."""
     b, kvh, g, dh = q.shape
     p, ps = pool_k.shape[0], pool_k.shape[1]
     mp = page_table.shape[1]
@@ -110,6 +137,7 @@ def paged_attention_cuda(
         ("q_pos", q_pos, (b,)),
         ("kv_pos", kv_pos, (b, mp * ps)),
     ))
+    require(WHERE, b > 0, "empty batch")
     require(WHERE, g * dh <= 1024, f"G * Dh = {g * dh} exceeds 1024")
     require(WHERE, 0 <= start < mp, f"start {start} not in [0, {mp})")
     seeds = (None, None, None)
@@ -121,12 +149,13 @@ def paged_attention_cuda(
                     f"{name} must be float32 on q's device")
             require(WHERE, tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
             require(WHERE, t.is_contiguous(), f"{name} must be contiguous")
+    splits, _ = paged_plan(b, kvh, mp, ps, start)
     out = torch.empty_like(q)
     err = load_library().repro_paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         page_bound.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         *(None if t is None else t.data_ptr() for t in seeds), out.data_ptr(),
-        b, kvh, g, dh, p, ps, mp, int(window), int(start), float(softcap),
+        b, kvh, g, dh, p, ps, mp, splits, int(window), int(start), float(softcap),
         1.0 / (dh ** 0.5), DTYPE_CODES[q.dtype], stream_ptr(q),
     )
     check(err, "repro_paged_attention")

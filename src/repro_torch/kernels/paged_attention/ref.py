@@ -8,8 +8,9 @@ CUDA kernels to them on the card. They match the kernels' conventions: a
 lane with no valid key slot (all ``kv_pos < 0`` or ``> q_pos``) returns
 exact zeros, and a lane whose whole shared run is masked leaves the
 cascade's stats at ``m = -1e30, l = 0, acc = 0`` (never ``-inf``).
-``merge_stats`` is the merge by which the split walks of K2 and K5 combine
-their blocks' partial states."""
+``merge_stats`` is the merge by which the split walks of K1, K2 and K5
+combine their blocks' partial states, and ``paged_stats_ref(span=...)``
+gives one of K1's."""
 
 from __future__ import annotations
 
@@ -92,6 +93,48 @@ def shared_prefix_ref(
     return _stats(logits, mask[:, None, None, :], v)
 
 
+def paged_stats_ref(
+    q: torch.Tensor,           # (B, KV, G, Dh) — the kernel binding's layout
+    pool_k: torch.Tensor,      # (P, page_size, KV, Dh) — shared pool, one layer
+    pool_v: torch.Tensor,
+    page_table: torch.Tensor,  # (B, MP) physical page ids per lane
+    q_pos: torch.Tensor,       # (B,) absolute position of the query
+    kv_pos: torch.Tensor,      # (B, MP*page_size), -1 = empty slot
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    start: int = 0,
+    init: Optional[Stats] = None,
+    span: Optional[Tuple[object, object]] = None,
+) -> Stats:
+    """The f32 ``(acc, m, l)`` of each lane's query through its page table:
+    slots from page ``start`` on, masked by position (``0 <= kv_pos <=
+    q_pos``, the window) and by page id (an id outside ``[0, P)`` masks its
+    page). With ``span = (lo, hi)`` (ints, or (B,) tensors of per-lane
+    bounds) only slots in ``[lo, hi)`` are attended: the state one block of
+    K1's split walk hands to the cluster's merge. With ``init`` the
+    continuation seed is merged first, as rank 0 merges it."""
+    b, kvh, _, dh = q.shape
+    p, ps = pool_k.shape[0], pool_k.shape[1]
+    tbl = page_table.long()
+    resident = (tbl >= 0) & (tbl < p)
+    tbl = torch.where(resident, tbl, torch.zeros_like(tbl))
+    k = pool_k[tbl].reshape(b, -1, kvh, dh)   # (B, MP*ps, KV, Dh)
+    v = pool_v[tbl].reshape(b, -1, kvh, dh)
+    qp = q_pos.reshape(b, 1)
+    mask = (kv_pos >= 0) & (kv_pos <= qp) & resident.repeat_interleave(ps, dim=1)
+    if window > 0:
+        mask = mask & (qp - kv_pos < window)
+    slot = torch.arange(kv_pos.shape[1], device=q.device)[None, :]
+    if start > 0:
+        mask = mask & (slot >= start * ps)
+    if span is not None:
+        lo, hi = (torch.as_tensor(x, device=q.device).reshape(-1, 1) for x in span)
+        mask = mask & (slot >= lo) & (slot < hi)
+    stats = _stats(_logits(q.float(), k, softcap), mask[:, None, None, :], v)
+    return stats if init is None else merge_stats([tuple(t.float() for t in init), stats])
+
+
 def paged_attention_ref(
     q: torch.Tensor,           # (B, 1, H, Dh) — rope'd query
     pool_k: torch.Tensor,      # (P, page_size, KV, Dh) — shared pool, one layer
@@ -112,25 +155,9 @@ def paged_attention_ref(
     exactly as the online softmax would continue them."""
     b, _, h, dh = q.shape
     kvh = pool_k.shape[2]
-    ps = pool_k.shape[1]
-    tbl = page_table.long()
-    k = pool_k[tbl].reshape(b, -1, kvh, dh)   # (B, MP*ps, KV, Dh)
-    v = pool_v[tbl].reshape(b, -1, kvh, dh)
-    qq = q.reshape(b, kvh, h // kvh, dh).float()
-    logits = _logits(qq, k, softcap)
-    qp = q_pos.reshape(b, 1)
-    mask = (kv_pos >= 0) & (kv_pos <= qp)
-    if window > 0:
-        mask = mask & (qp - kv_pos < window)
-    if start > 0:
-        slot = torch.arange(kv_pos.shape[1], device=q.device)[None, :]
-        mask = mask & (slot >= start * ps)
-    acc, m, l = _stats(logits, mask[:, None, None, :], v)
-    if init is not None:
-        acc0, m0, l0 = (t.float() for t in init)
-        m_new = torch.maximum(m0, m)
-        a0, a1 = torch.exp(m0 - m_new), torch.exp(m - m_new)
-        acc = acc0 * a0 + acc * a1
-        l = l0 * a0 + l * a1
+    acc, _, l = paged_stats_ref(
+        q.reshape(b, kvh, h // kvh, dh), pool_k, pool_v, page_table, q_pos.reshape(b),
+        kv_pos, window=window, softcap=softcap, start=start, init=init,
+    )
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l).reshape(b, 1, h, dh).to(q.dtype)

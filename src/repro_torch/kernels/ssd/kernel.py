@@ -12,12 +12,24 @@ from typing import Tuple
 
 import torch
 
-from ..build import check, load_library, require, stream_ptr
+from ..build import check, device_sms, load_library, require, stream_ptr
 
 WHERE = "ssd_chunk_cuda"
 STATE_DIMS = (16, 32, 64, 128)   # N: the kernel's instantiations
 HEAD_DIMS = (32, 64)             # P
 MAX_CHUNK = 128                  # Q: chunk rows per block, at most
+
+
+def ssd_plan(b: int, nc: int, h: int, sms: int) -> Tuple[int, Tuple[int, int, int]]:
+    """K6's launch: ``(heads per block, grid)``. A block takes one (lane,
+    chunk) and a group of heads; the group is as small as keeps the grid
+    ``(head groups, NC, B)`` within one wave of the card's ``sms`` SMs (one
+    block per SM), so a larger group means fewer, longer blocks only where
+    the heads outnumber the SMs. The kernel launches the head groups of a
+    chunk as clusters of up to 4 blocks that share CB (``csrc/ssd.cu``),
+    padding the grid's first axis to a multiple of the cluster."""
+    hg = max(1, -(-(b * nc * h) // sms))
+    return hg, (-(-h // hg), nc, b)
 
 
 def ssd_chunk_cuda(
@@ -29,7 +41,7 @@ def ssd_chunk_cuda(
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K6 -> (y_intra (B,L,H,P), states (B,NC,H,N,P), dA_cs (B,L,H)),
-    all f32."""
+    all f32: one launch, planned by ``ssd_plan``."""
     b, l, h, p = x.shape
     n = Bv.shape[-1]
     require(WHERE, x.is_cuda, "x must be a CUDA tensor")
@@ -44,12 +56,13 @@ def ssd_chunk_cuda(
                 f"{name} must be f32 on x's device")
         require(WHERE, tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
         require(WHERE, t.is_contiguous(), f"{name} must be contiguous")
+    hg, _ = ssd_plan(b, l // chunk, h, device_sms(x.device))
     y = torch.empty_like(x)
     states = torch.empty((b, l // chunk, h, n, p), dtype=torch.float32, device=x.device)
     dA_cs = torch.empty_like(dt)
     err = load_library().repro_ssd_chunk(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
-        y.data_ptr(), states.data_ptr(), dA_cs.data_ptr(), b, l, h, p, n, chunk,
+        y.data_ptr(), states.data_ptr(), dA_cs.data_ptr(), b, l, h, p, n, chunk, hg,
         stream_ptr(x),
     )
     check(err, "repro_ssd_chunk")

@@ -386,7 +386,7 @@ def test_decode_kernel_reads_kv_pos(dev):
 
 
 # ---------------------------------------------------------------------------
-# The split walk of K2 and K5: cluster launches of 1-8 blocks per (KV head,
+# The split walk of K1, K2 and K5: cluster launches of 1-8 blocks per (KV head,
 # lanes) whose partial states merge in a fixed order
 # ---------------------------------------------------------------------------
 
@@ -509,6 +509,79 @@ def test_decode_split_edges(dev, monkeypatch, dtype, B, H, KV, Dh, case):
         assert (out[~rows] == 0).all()
     if B >= 3:
         assert not rows[-1]
+
+
+# K1 through paged tables: lane b's (tokens, window) drawn in turn from the
+# case; with start > 0 the lanes share the table's first pages (a 256-token
+# run) and K1 continues K2's stats (lanes with a negative suffix query inside
+# the run: bound <= start, the seed alone)
+K1_SPLIT_CASES = {
+    # lanes of 1, 127, 129 (a tile boundary), 700 and 1000 tokens; the first
+    # split of a short lane is its only non-empty one
+    "ragged": (0, 0, (1, 127, 129, 700, 1000)),
+    # window 150: each lane's range starts inside its last tiles
+    "window": (150, 0, (600, 1000, 151)),
+    # the cascade's suffix pass
+    "continuation": (0, 256, (-100, -1, 1, 40, 300)),
+}
+
+
+def _k1_split_inputs(dev, B, ps, H, KV, Dh, dtype, n_run, sizes, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes = [sizes[b % len(sizes)] for b in range(B)]
+    if B >= 3 and not n_run:
+        sizes[-1] = 0                        # a lane with no valid slot
+    n_shared = n_run // ps
+    lens = [n_run + s for s in sizes]
+    pages_of = lambda n: -(-max(n, 0) // ps)  # noqa: E731
+    mp = max(n_shared + 1, max(pages_of(n) for n in lens))
+    n_pages = 1 + n_shared + sum(pages_of(n - n_run) for n in lens)
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
+    pk = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(n_pages, ps, KV, Dh, generator=gen, device=dev).to(dtype)
+    table = torch.zeros(B, mp, dtype=torch.int32)
+    kv_pos = torch.full((B, mp * ps), -1, dtype=torch.int32)
+    used = 1 + n_shared
+    for b, n in enumerate(lens):
+        table[b, :n_shared] = torch.arange(1, 1 + n_shared, dtype=torch.int32)
+        for j in range(n_shared, pages_of(n)):
+            table[b, j] = used
+            used += 1
+        kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+    q_pos = torch.tensor([[max(n - 1, 0)] for n in lens], dtype=torch.int32)
+    shared = torch.arange(1, 1 + n_shared, dtype=torch.int32, device=dev) if n_shared else None
+    return (q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)), shared
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("case", list(K1_SPLIT_CASES))
+@pytest.mark.parametrize("heads", [(16, 4), (16, 16)], ids=["gqa", "mha"])
+def test_paged_split_edges(dev, monkeypatch, dtype, B, ps, case, heads):
+    """K1 with 1, 2, 4 and 8 splits and with the planner's choice (K2's
+    too, in the cascade), each against the plain single pass on every lane,
+    at GQA 16/4 (4 query rows per KV head) and at the main path's MHA 16/16
+    (one row); the same inputs twice give identical bits; a lane with no
+    valid slot writes zeros."""
+    from repro_torch.kernels.paged_attention import kernel
+
+    window, n_run, sizes = K1_SPLIT_CASES[case]
+    args, shared = _k1_split_inputs(dev, B, ps, *heads, 64, dtype, n_run, sizes)
+    want = paged_attention_ref(*args, window=window)
+    for splits in (1, 2, 4, 8, None):
+        with monkeypatch.context() as mp:
+            _force_splits(mp, kernel, splits)
+            before = paged_attention.launches
+            out = paged_attention(*args, shared, window=window)
+            again = paged_attention(*args, shared, window=window)
+            assert paged_attention.launches == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), splits
+        torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=lambda m, s=splits: f"splits {s}: {m}")
+    if B >= 3 and not n_run:
+        assert (out[-1] == 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""The split walk that K2 (shared prefix) and K5 (flash decode) share on the
-card, held to the JAX package on the CPU: the host's split planner, and the
-merge by which a cluster combines its blocks' partial softmax states.
+"""The split walk that K1 (paged decode), K2 (shared prefix) and K5 (flash
+decode) share on the card, held to the JAX package on the CPU: the host's
+split planners, and the merge by which a cluster combines its blocks'
+partial softmax states.
 
 The run or cache is cut into 1-8 splits exactly as the kernels cut it
-(``split_ranges``, whole 128-token tiles, some splits empty); each split's
-state comes from the port's plain versions restricted to its tokens
-(``shared_prefix_ref(span=...)``, ``decode_stats_ref(span=...)``), and
-``merge_stats`` of them must equal the Pallas kernels in interpret mode on
-the same numpy inputs, including lanes whose whole run is masked. f32,
+(``split_ranges``, whole 128-token tiles, some splits empty; K1 cuts each
+lane's own range on the device, mirrored by ``paged_split_ranges``); each
+split's state comes from the port's plain versions restricted to its
+tokens (``shared_prefix_ref(span=...)``, ``decode_stats_ref(span=...)``,
+``paged_stats_ref(span=...)``), and ``merge_stats`` of them (K1's
+continuation seed first) must equal the Pallas kernels in interpret mode
+on the same numpy inputs, including lanes whose whole run is masked. f32,
 rtol = atol = 1e-5: the same products, summed in another order."""
 
 import functools
@@ -19,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.decode_attention.kernel import decode_attention_pallas as jax_k5
+from repro.kernels.paged_attention.kernel import paged_attention_pallas as jax_k1
 from repro.kernels.paged_attention.kernel import shared_prefix_pallas as jax_k2
 from repro_torch.kernels.decode_attention.kernel import decode_plan
 from repro_torch.kernels.decode_attention.ref import decode_stats_ref
@@ -26,11 +30,19 @@ from repro_torch.kernels.paged_attention.kernel import (
     MAX_SPLITS,
     SPLIT_TILE,
     TARGET_BLOCKS,
+    paged_lane_range,
+    paged_plan,
+    paged_split_ranges,
     plan_splits,
     shared_prefix_plan,
     split_ranges,
 )
-from repro_torch.kernels.paged_attention.ref import NEG_INF, merge_stats, shared_prefix_ref
+from repro_torch.kernels.paged_attention.ref import (
+    NEG_INF,
+    merge_stats,
+    paged_stats_ref,
+    shared_prefix_ref,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPLITS = list(range(1, MAX_SPLITS + 1))
@@ -93,6 +105,18 @@ def test_plan_main_path_shapes():
     assert decode_plan(1, 16, 100) == (1, (1, 16, 1))
     for (s, kvh, z) in ((8, 16, 1), (4, 32, 1)):
         assert s * kvh * z == 128
+    # K1: the paper model's B = 1 lane over a 64-page (1024-token) table
+    # takes all 8 splits, none empty; the engine's 128-page table too
+    assert paged_plan(1, 16, 64, 16) == (8, (8, 16, 1))
+    assert paged_split_ranges(1023, 64, 16, 8) == [(128 * k, 128 * (k + 1)) for k in range(8)]
+    assert paged_plan(1, 16, 128, 16) == (8, (8, 16, 1))
+    assert all(hi > lo for lo, hi in paged_split_ranges(1249, 79, 16, 8))
+    # K1 at B = 8 (the batched server): one block per (lane, KV head), in
+    # the single pass and in the cascade's continuation over a few suffix
+    # pages past a 64-page run, which no planner splits
+    assert paged_plan(8, 16, 69, 16) == (1, (1, 16, 8))
+    assert paged_plan(8, 16, 69, 16, start=64) == (1, (1, 16, 8))
+    assert paged_plan(1, 16, 69, 16, start=64) == (1, (1, 16, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -216,3 +240,133 @@ def test_merge_stats_empty_parts_add_nothing():
     acc, m, l = merge_stats([empty] * 8)
     assert (m == NEG_INF).all() and (l == 0).all() and (acc == 0).all()
     assert torch.isfinite(acc).all()
+
+
+# ---------------------------------------------------------------------------
+# K1: each lane's own range, split on the device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_paged_split_ranges_cover_each_lane_once(ps):
+    """K1's split of a lane's range [lo, hi): lo is the first page walked or
+    the window's first position, hi the page bound; the splits tile it in
+    order with whole 128-token tiles from lo, and with no more splits than
+    tiles none is empty. A lane whose bound is at or before ``start`` walks
+    nothing."""
+    mp = -(-2048 // ps)
+    for q_pos in (0, 1, 127, 128, 300, 1023, 1250, 2047):
+        bound = min(mp, max(1, -(-(q_pos + 1) // ps)))
+        for window in (0, 100, 1000):
+            for start in (0, 2, 5, 40):
+                if start >= mp:
+                    continue
+                lo, hi = paged_lane_range(q_pos, bound, ps, start, window)
+                assert lo == max(start * ps, q_pos - window + 1 if window else 0)
+                assert hi == max(lo, bound * ps)
+                if bound <= start:
+                    assert hi == lo
+                tiles = -(-(hi - lo) // SPLIT_TILE)
+                for splits in (1, 2, 4, 8):
+                    ranges = paged_split_ranges(q_pos, bound, ps, splits, start, window)
+                    assert len(ranges) == splits
+                    assert ranges[0][0] == lo and ranges[-1][1] == hi
+                    for (a, b), (a2, _) in zip(ranges, ranges[1:]):
+                        assert b == a2
+                    for a, b in ranges:
+                        assert a <= b and (a - lo) % SPLIT_TILE == 0
+                    covered = np.concatenate([np.arange(a, b) for a, b in ranges])
+                    assert np.array_equal(covered, np.arange(lo, hi))
+                    if splits <= tiles:
+                        assert all(b > a for a, b in ranges), (q_pos, window, start, ranges)
+
+
+def _k1_inputs(seed, n_shared, suffixes, ps, H, KV, Dh):
+    """Lane b holds ``n_shared * ps + suffixes[b]`` tokens (a negative suffix
+    puts its query inside the shared run); its table starts with the
+    ``n_shared`` shared pages and goes on with fresh pages for a positive
+    suffix. A lane of 0 tokens has no valid slot (query at 0). Returns the
+    Pallas kernel's arguments (q, pools, table, bound, q_pos, kv_pos
+    (B, MP, ps)) and the shared pages."""
+    rng = np.random.default_rng(seed)
+    B = len(suffixes)
+    pages_of = lambda n: -(-max(n, 0) // ps)  # noqa: E731
+    mp = n_shared + max(1, max(pages_of(s) for s in suffixes))
+    n_pages = 1 + n_shared + sum(pages_of(s) for s in suffixes)
+    q = rng.standard_normal((B, KV, H // KV, Dh)).astype(np.float32)
+    pool_k = rng.standard_normal((n_pages, ps, KV, Dh)).astype(np.float32)
+    pool_v = rng.standard_normal((n_pages, ps, KV, Dh)).astype(np.float32)
+    shared = np.arange(1, 1 + n_shared, dtype=np.int32)
+    table = np.zeros((B, mp), np.int32)
+    kv_pos = np.full((B, mp * ps), -1, np.int32)
+    used = 1 + n_shared
+    for b, sfx in enumerate(suffixes):
+        table[b, :n_shared] = shared
+        for j in range(pages_of(sfx)):
+            table[b, n_shared + j] = used
+            used += 1
+        n = n_shared * ps + sfx
+        kv_pos[b, :n] = np.arange(n)
+    q_pos = np.asarray([max(n_shared * ps + s - 1, 0) for s in suffixes], np.int32)
+    bound = np.clip(-(-(q_pos + 1) // ps), 1, mp).astype(np.int32)
+    return (q, pool_k, pool_v, table, bound, q_pos, kv_pos.reshape(B, mp, ps)), shared
+
+
+K1_CASES = {
+    # ragged lanes up to 4+ tiles, and an empty lane (no valid slot)
+    "ragged": (dict(n_shared=0, suffixes=(0, 1, 35, 300, 517), H=4, KV=2, Dh=16),
+               dict(window=0, softcap=0.0)),
+    # a window that starts mid-tile: each lane's range starts there
+    "window-cap": (dict(n_shared=0, suffixes=(1, 150, 517), H=4, KV=4, Dh=16),
+                   dict(window=200, softcap=8.0)),
+    # the cascade's suffix pass over 256 shared tokens: queries inside the
+    # run (bound <= start: the seed alone), at its end, and past it
+    "continuation": (dict(n_shared=256, suffixes=(-100, -1, 1, 21, 300), H=4, KV=2, Dh=16),
+                     dict(window=0, softcap=0.0)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_case(name, ps):
+    shape, kw = K1_CASES[name]
+    shape = dict(shape, n_shared=shape["n_shared"] // ps)
+    args, shared = _k1_inputs(2, ps=ps, **shape)
+    start, init = shape["n_shared"], None
+    jargs = [jnp.asarray(a) for a in args]
+    if start:
+        q, pk, pv, _, _, q_pos, _ = jargs
+        init = jax_k2(q, pk, pv, jnp.asarray(shared), q_pos, interpret=True, **kw)
+        init = tuple(np.array(t) for t in init)
+    want = jax_k1(*jargs, interpret=True, start=start,
+                  init=None if init is None else tuple(jnp.asarray(t) for t in init), **kw)
+    return args, kw, start, init, np.asarray(want)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_merged_k1_splits_match_pallas(case, ps, splits):
+    """K1's split walk: each block's state over its split of its lane's
+    range, merged after the continuation seed (rank 0's order) and
+    normalised, equals paged_attention_pallas; a lane with no valid slot
+    gives exact zeros and one whose bound is <= start the seed alone."""
+    args, kw, start, init, want = _k1_case(case, ps)
+    q, pk, pv, table, bound, q_pos, kv_pos = (torch.from_numpy(a) for a in args)
+    B = q.shape[0]
+    kv_pos = kv_pos.reshape(B, -1)
+    ranges = [paged_split_ranges(int(q_pos[b]), int(bound[b]), ps, splits, start,
+                                 kw["window"]) for b in range(B)]
+    parts = [] if init is None else [tuple(torch.from_numpy(t) for t in init)]
+    for k in range(splits):
+        span = (torch.tensor([r[k][0] for r in ranges]), torch.tensor([r[k][1] for r in ranges]))
+        parts.append(paged_stats_ref(q, pk, pv, table, q_pos, kv_pos, span=span, **kw))
+    acc, m, l = merge_stats(parts)
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    if case == "ragged":
+        assert (out[0] == 0).all() and (m[0] == NEG_INF).all() and (l[0] == 0).all()
+    if case == "continuation":
+        walked = [hi - lo for lo, hi in (paged_lane_range(int(q_pos[b]), int(bound[b]), ps,
+                                                          start) for b in range(B))]
+        assert walked[0] == 0 and walked[-1] > 0
+        seed_only = merge_stats([parts[0]])
+        assert torch.equal(acc[0], seed_only[0][0]) and torch.equal(l[0], seed_only[2][0])

@@ -112,7 +112,21 @@ non-zero):
                off; Mamba2 at its 48 layers, Zamba2 cut to its first 25):
                a teacher-forced 1024 + 16-token turn through the kernel and
                plain paths within SSM_F32_REL x the plain logits' std;
-17. result  — JSON lines with every kernel's numbers (K1-K6), the card's
+17. discedge — the port's DisCEdge system (Context Manager, replicated
+               token store, edge nodes, roaming client; ``repro_torch.
+               {core,store,edge}``) serves the paper's 9-turn scenario
+               (switches at turns 3/5/7, 16 new tokens, 1500 ms think
+               time) on two nodes m2 and tx2, each its own TorchLLMService
+               over one copy of the full-width paper model's bf16 weights:
+               TOKENIZED, RAW and CLIENT_SIDE on the paged route (K3 + K1),
+               TOKENIZED with ``kv_reuse=False`` (K4 + K5), and TOKENIZED
+               with KV pages shipped m2 -> tx2; every turn answers, the
+               route's kernels launch on every turn, the replicas converge,
+               the reuse runs hit on every turn after the first with a warm
+               start on turn 3 ("tokens" / "pages"); prints per-run
+               response times, sync and request bytes and the paper's two
+               comparisons (``{"discedge_path": ...}``);
+18. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
 
@@ -1962,6 +1976,244 @@ def phase_equivalence(svc, last_turn, dev) -> float:
     return diff
 
 
+# ---------------------------------------------------------------------------
+# The DisCEdge system: context manager, replicated store, edge nodes and a
+# roaming client serving the paper's 9-turn scenario on the card
+# ---------------------------------------------------------------------------
+
+# The paper's scenario (Appendix A.1; examples/serve_mobile_client.py): nine
+# robotics prompts, the client switching nodes at turns 3, 5 and 7.
+DISCEDGE_PROMPTS = [
+    "What are the fundamental components of an autonomous mobile robot?",
+    "You mentioned sensors. What are the most common types for obstacle avoidance?",
+    "Can you explain the concept of a PID controller in the context of motor control?",
+    "Write a simple Python function for a proportional (P) controller.",
+    "In your previous code, what do the kp and error variables represent?",
+    "How would you modify that function to include the integral (I) component?",
+    "Now, let's talk about localization. What is SLAM?",
+    "What are some of the main challenges when implementing that on a small, low-power robot?",
+    "Can you compare the EKF SLAM and Particle Filter SLAM approaches?",
+]
+DISCEDGE_NODES = ["m2", "m2", "tx2", "tx2", "m2", "m2", "tx2", "tx2", "m2"]
+DISCEDGE_MAX_NEW, DISCEDGE_THINK_MS = 16, 1500.0
+# With session KV reuse every turn after the first reuses the whole stored
+# context, and only turn 3, the session's first arrival on tx2, is a warm
+# start: on turns 5, 7 and 9 the node's own entry from its earlier turns was
+# extended by the replicated writes, which keeps its provenance. JAX's
+# cluster marks the turns so (tests/test_torch_discedge_model.py holds it to
+# this constant on the CPU).
+DISCEDGE_WARM_TURN = 3
+# (run, context mode, service route, kv_ship_force)
+DISCEDGE_RUNS = (
+    ("a", "tokenized", "paged", None),
+    ("b", "raw", "paged", None),
+    ("c", "client_side", "paged", None),
+    ("d", "tokenized", "kv_reuse=False", None),
+    ("e", "tokenized", "paged", "ship"),
+)
+
+
+def phase_discedge(dev) -> dict:
+    """The port's DisCEdge system end to end on the full-width paper model:
+    two edge nodes m2 and tx2 (the example's links: inter-node 2 ms /
+    100 Mbit/s, client 5 ms / 20 Mbit/s), each with its own TorchLLMService
+    (its own session pool and page allocator) over one shared copy of the
+    bf16 weights, serve the paper's 9-turn roaming scenario through the
+    port's EdgeCluster and LLMClient, 16 new tokens a turn and 1500 ms of
+    think time between turns. Five runs: TOKENIZED, RAW and CLIENT_SIDE on
+    the paged route (K3 + K1), TOKENIZED with ``kv_reuse=False`` on the
+    dense route (K4 + K5), and TOKENIZED with KV pages shipped m2 -> tx2.
+    Every turn must answer, every kernel of the run's route launch at least
+    once per layer on every turn (the other route's none), the replicas
+    converge; in the reuse runs every turn after the first is a session
+    hit over its whole context and turn 3 a warm start ("tokens", or
+    "pages" when shipped). Returns per-run metrics and the paper's two
+    comparisons, computed as the example computes them."""
+    from statistics import median as _median
+
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.core import ContextMode
+    from repro_torch.edge import EdgeCluster, LLMClient
+    from repro_torch.models import init_params
+    from repro_torch.serving import TorchLLMService
+    from repro_torch.store import Link
+
+    cfg = PAPER_QWEN15_0_5B.replace(attn_impl="cuda")
+    model = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    # warm-up (cuBLAS handles, allocator) on a throwaway service, not counted
+    TorchLLMService.create(model, cfg, max_len=2048, page_size=PS, kv_pages=64, device=dev,
+                           params=params).completion(list(range(300, 364)), [300], 4,
+                                                     cache_key="warmup")
+    torch.cuda.synchronize()
+    log(f"discedge: weights and warm-up {time.perf_counter() - t0:.2f} s")
+    counters = dict(_counters(), **_dense_counters())
+    route_kernels = {"paged": ("chunked_prefill", "paged_attention"),
+                     "kv_reuse=False": ("flash_attention", "decode_attention")}
+    ship_ms_per_token = 0.0
+    runs, texts = {}, {}
+    for run, mode, route, force in DISCEDGE_RUNS:
+        def factory(nid, route=route, force=force):
+            if route == "paged":
+                svc = TorchLLMService.create(model, cfg, max_len=2048, page_size=PS,
+                                             kv_pages=512, device=dev, params=params)
+            else:
+                svc = TorchLLMService.create(model, cfg, max_len=2048, kv_reuse=False,
+                                             device=dev, params=params)
+            if force is not None:
+                svc.ship_prefill_ms_per_token = ship_ms_per_token
+            return svc
+
+        kw = dict(kv_ship=True, kv_ship_force=force) if force is not None else {}
+        cluster = EdgeCluster.build(
+            ["m2", "tx2"], factory,
+            inter_node_link=Link(latency_ms=2.0, bandwidth_mbps=100.0),
+            client_link=Link(latency_ms=5.0, bandwidth_mbps=20.0), **kw)
+        client = LLMClient(cluster, model=model, mode=ContextMode(mode),
+                           max_new_tokens=DISCEDGE_MAX_NEW)
+        t_run = time.perf_counter()
+        for c in counters.values():
+            c.launches = 0
+        responses, per_turn = [], []
+        for i, (prompt, node) in enumerate(zip(DISCEDGE_PROMPTS, DISCEDGE_NODES)):
+            before = {k: c.launches for k, c in counters.items()}
+            r = client.chat(prompt, node)
+            assert r.error is None, (run, i + 1, r.error)
+            per_turn.append({k: c.launches - before[k] for k, c in counters.items()})
+            responses.append(r)
+            client.think(DISCEDGE_THINK_MS)
+        cluster.converge()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_run
+        launches = {k: c.launches for k, c in counters.items()}
+        services = [n.service for n in cluster.nodes.values()]
+        fallbacks = sum(s.engine.paged_fallbacks for s in services)
+        assert fallbacks == 0, (run, fallbacks)
+        assert cluster.converged() and cluster.store.replicas_converged(model), run
+        want = route_kernels[route]
+        for i, n in enumerate(per_turn):
+            for k in want:
+                assert n[k] >= cfg.n_layers, (run, i + 1, k, n)
+        for k, v in launches.items():
+            if k not in want:
+                assert v == 0, (run, k, launches)
+        hits = [r.timing.kv_cache_hit for r in responses]
+        warm = [r.timing.kv_warm_source if r.timing.kv_warm_start else "none"
+                for r in responses]
+        if run in ("a", "e"):
+            source = "pages" if force == "ship" else "tokens"
+            for i, r in enumerate(responses[1:], start=2):
+                assert r.timing.kv_cache_hit, (run, i)
+                assert r.timing.kv_reused_tokens == r.n_context_tokens > 0, (
+                    run, i, r.timing.kv_reused_tokens, r.n_context_tokens)
+            assert warm == ["none"] * (DISCEDGE_WARM_TURN - 1) + [source] + ["none"] * (
+                len(responses) - DISCEDGE_WARM_TURN), (run, warm)
+        if route != "paged":
+            assert not any(hits), (run, hits)
+        ship = cluster.kv_ship_stats()
+        if force == "ship":
+            assert ship["installed"] > 0 and ship["fallbacks"] == 0, (run, ship)
+            assert ship["node_fallbacks"] == 0, (run, ship)
+        rts = [r.timing.response_time_ms for r in responses]
+        texts[run] = [r.text for r in responses]
+        runs[run] = {
+            "mode": mode, "route": route, "kv_ship_force": force,
+            "rt_median_ms": _median(rts), "rt_ms": rts,
+            "inference_ms_median": _median([r.timing.inference_ms for r in responses]),
+            "ttft_ms_median": _median([r.timing.ttft_ms for r in responses]),
+            "tokenize_ms_median": _median([r.timing.tokenize_ms for r in responses]),
+            "decode_ms_per_token_p50": _median([r.timing.decode_p50_ms for r in responses]),
+            "sync_bytes": cluster.sync_bytes(),
+            "request_bytes_median": _median(client.request_bytes_log),
+            "client_bytes_up": cluster.client_bytes_up(),
+            "context_tokens": [r.n_context_tokens for r in responses],
+            "generated_tokens": [r.n_generated_tokens for r in responses],
+            "prefill_tokens": [r.timing.prefill_tokens for r in responses],
+            "hits": sum(hits), "warm_starts": cluster.warm_starts(), "warm": warm,
+            "launches": launches, "kv_ship": ship, "wall_s": wall_s,
+        }
+        log(f"discedge: run {run} ({mode}, {route}{', ship' if force else ''}) in "
+            f"{wall_s:.2f} s: rt median {runs[run]['rt_median_ms']:.2f} ms, inference "
+            f"median {runs[run]['inference_ms_median']:.2f} ms, ttft median "
+            f"{runs[run]['ttft_ms_median']:.2f} ms, sync {runs[run]['sync_bytes']} B, "
+            f"request median {runs[run]['request_bytes_median']} B, hits {sum(hits)}, "
+            f"warm {warm}, launches {launches}"
+            + (f", kv_ship installed {ship['installed']} pages {ship['installed_pages']}"
+               if ship else ""))
+        log(f"discedge: run {run} per-turn rt_ms {[round(x, 3) for x in rts]}")
+        if run == "a":
+            # this card's measured prefill cost, for run e's ship cost model
+            ship_ms_per_token = _median([r.timing.ttft_ms / max(1, r.timing.prefill_tokens)
+                                         for r in responses])
+        del cluster, client, services
+        torch.cuda.empty_cache()
+    # same weights, same prompts: does each run generate run a's text turn by
+    # turn? Reported, not required: bf16 near-ties can flip a token, and a
+    # flip changes every later turn's context
+    for run in runs:
+        runs[run]["text_equal_a"] = [t == ta for t, ta in zip(texts[run], texts["a"])]
+    log("discedge: per-turn text equal to run a: " + ", ".join(
+        f"{run} {sum(r['text_equal_a'])}/{len(r['text_equal_a'])}" for run, r in runs.items()))
+    launcher = _discedge_launcher(counters, dev)
+    # reductions in percent, as examples/serve_mobile_client.py computes them
+    tok, raw, cs = runs["a"], runs["b"], runs["c"]
+    compare = {
+        "tokenized_vs_raw_rt_pct": (1 - tok["rt_median_ms"] / raw["rt_median_ms"]) * 100,
+        "tokenized_vs_raw_sync_pct": (1 - tok["sync_bytes"] / raw["sync_bytes"]) * 100,
+        "edge_vs_client_side_rt_pct": (1 - tok["rt_median_ms"] / cs["rt_median_ms"]) * 100,
+        "edge_vs_client_side_req_pct": (1 - tok["request_bytes_median"]
+                                        / cs["request_bytes_median"]) * 100,
+    }
+    log(f"discedge: tokenized vs raw: RT {-compare['tokenized_vs_raw_rt_pct']:+.2f}%  sync "
+        f"{-compare['tokenized_vs_raw_sync_pct']:+.1f}%   (the paper's testbed: -14.46% / -15%)")
+    log(f"discedge: edge vs client-side: RT {-compare['edge_vs_client_side_rt_pct']:+.2f}%  req "
+        f"{-compare['edge_vs_client_side_req_pct']:+.1f}%   (the paper's testbed: -5.93% / -90%)")
+    del params
+    torch.cuda.empty_cache()
+    return {"runs": runs, "compare": compare, "ship_prefill_ms_per_token": ship_ms_per_token,
+            "launcher": launcher}
+
+
+def _discedge_launcher(counters, dev) -> dict:
+    """``python -m repro_torch.launch.serve --arch paper-qwen1.5-0.5b --roam``
+    as a user calls it (no ``--device``: the card; a CPU rehearsal passes
+    ``--device cpu``): two nodes serve 4 turns
+    of the reduced paper model on the default dense session route, whose
+    kernels K4 and K5 must each launch at least once per layer per turn and
+    the paged ones not at all."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    arch, turns = "paper-qwen1.5-0.5b", 4
+    n_layers = get_config(arch).reduced().n_layers
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", arch, "--turns", str(turns), "--roam"]
+                   + ([] if dev.type == "cuda" else ["--device", dev.type]))
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for line in out.getvalue().splitlines():
+        log(f"discedge launcher: {line}")
+    for k in ("flash_attention", "decode_attention"):
+        assert launches[k] >= turns * n_layers, (k, launches)
+    for k in ("chunked_prefill", "paged_attention", "shared_prefix"):
+        assert launches[k] == 0, (k, launches)
+    rows = [ln for ln in out.getvalue().splitlines()[1:] if ln.strip()]
+    assert len(rows) == turns + 1 and rows[-1].startswith("sync="), rows
+    log(f"discedge launcher: {wall_s:.2f} s, launches {launches}")
+    return {"turns": turns, "launches": launches, "wall_s": wall_s, "last_line": rows[-1]}
+
+
 SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
 
 
@@ -2087,6 +2339,7 @@ def main() -> int:
     # layers (4 shared-attention invocations; 9.3 GB of f32 weights)
     ssm_f32 = {"mamba2": phase_ssm_f32(dev, MAMBA2_1_3B, MAMBA2_1_3B.n_layers),
                "zamba2": phase_ssm_f32(dev, ZAMBA2_7B, 25)}
+    discedge = phase_discedge(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2100,6 +2353,7 @@ def main() -> int:
         k: v for k, v in k5.items() if k not in keys}}))
     print(json.dumps({"ssm_path": ssm, "zamba_path": zamba, "ssm_f32": ssm_f32, "k6_extra": {
         k: v for k, v in k6.items() if k not in keys}}))
+    print(json.dumps({"discedge_path": discedge}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.manager import ServiceCapabilities, ServiceResult
 from ..device import DeviceLike, resolve_device, synchronize
 from ..models import (
     ModelConfig,
@@ -58,6 +59,7 @@ from ..models import (
     supports_append,
 )
 from ..models.cache import clone_caches, trim_cache_prefix
+from ..store.kv_ship import NodeShipProfile, PageShipment
 from ..tokenizer import EOS, IM_END, ByteLevelBPE, get_tokenizer
 from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .paged_kv import PagedKVAllocator
@@ -68,66 +70,6 @@ from .session_cache import (
     longest_common_prefix,
     warm_source_of,
 )
-
-# ---------------------------------------------------------------------------
-# Service contract — copies of repro.core.manager's dataclasses, so a JAX
-# EdgeNode can mount a TorchLLMService by duck typing
-# ---------------------------------------------------------------------------
-
-@dataclass(frozen=True)
-class ServiceCapabilities:
-    """What an LLM Service can do (``repro.core.manager.ServiceCapabilities``)."""
-
-    prime: bool = False
-    kv_reuse: bool = False
-    batched: bool = False
-    n_slots: int = 1
-
-
-@dataclass
-class ServiceResult:
-    """One completion's result (``repro.core.manager.ServiceResult``)."""
-
-    text: str
-    token_ids: List[int]
-    inference_ms: float
-    cache_hit: bool = False
-    reused_tokens: int = 0
-    prefill_tokens: int = 0
-    cache_update_ms: float = 0.0
-    warm_start: bool = False
-    warm_source: str = "none"
-    queue_ms: float = 0.0
-    batch_size: int = 1
-    ttft_ms: float = 0.0
-    decode_p50_ms: float = 0.0
-    decode_p99_ms: float = 0.0
-
-
-# ---------------------------------------------------------------------------
-# KV-page shipping contract — copies of repro.store.kv_ship's dataclasses, so
-# a JAX KVShipper can drive a torch node's hooks by duck typing
-# ---------------------------------------------------------------------------
-
-@dataclass(frozen=True)
-class NodeShipProfile:
-    """One node's shipping constants (``repro.store.kv_ship.NodeShipProfile``):
-    a page's size on the wire and the node's measured prefill cost."""
-
-    page_size: int
-    page_wire_bytes: int
-    prefill_ms_per_token: float
-    state_is_o1: bool = False
-
-
-@dataclass
-class PageShipment:
-    """A sender-side export (``repro.store.kv_ship.PageShipment``): the
-    token ids whose KV the pages hold and one payload per resident full
-    page, index-aligned from page 0."""
-
-    token_ids: List[int]
-    payloads: List[bytes]
 
 
 def _bucket(n: int, step: int) -> int:
@@ -837,9 +779,10 @@ class TorchLLMService:
     ``cache_key``; hit turns prefill only the uncovered suffix. With
     ``kv_reuse=False`` (the paper's own llama.cpp behaviour) every turn
     prefills its whole context on the dense route. Context that would
-    overflow the engine is truncated from the oldest tokens. It duck-types
-    ``repro.core.manager.LLMServiceProtocol``, so a JAX ``EdgeNode`` can
-    mount it."""
+    overflow the engine is truncated from the oldest tokens. It implements
+    ``repro_torch.core.manager.LLMServiceProtocol`` and, by duck typing,
+    JAX's ``repro.core.manager.LLMServiceProtocol``, so a port
+    ``EdgeNode`` or a JAX one can mount it."""
 
     model: str
     engine: InferenceEngine
@@ -891,7 +834,7 @@ class TorchLLMService:
             return False
         return self.engine.prime(cache_key, list(token_ids))
 
-    # -- KV-page shipping hooks (driven by repro.store.kv_ship.KVShipper) --
+    # -- KV-page shipping hooks (driven by a KVShipper: the port's or JAX's) --
     def kv_ship_profile(self) -> Optional[NodeShipProfile]:
         """This node's shipping constants, or None when it can't ship (reuse
         off, a dense pool, or no measured prefill constant)."""

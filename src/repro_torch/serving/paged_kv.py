@@ -22,7 +22,6 @@ The pools are long-lived device tensors that compute writes **in place**
 
 from __future__ import annotations
 
-import hashlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -30,32 +29,10 @@ import torch
 
 from ..models import ModelConfig, layer_groups, supports_append
 from ..models.cache import init_paged_pool
+from ..store.kv_ship import page_digests  # noqa: F401  (re-export)
 
 # Physical page 0 is never allocated: page-table padding points here.
 SCRATCH_PAGE = 0
-
-
-def page_digests(
-    token_ids: Sequence[int], page_size: int, limit: Optional[int] = None
-) -> List[bytes]:
-    """Chained content digests of the page-aligned full blocks of
-    ``token_ids`` (a copy of ``repro.store.kv_ship.page_digests``): digest
-    ``i`` commits to tokens ``[0, (i+1)*page_size)``, so two sequences share
-    digest ``i`` iff their prefixes through page ``i`` are identical — the
-    condition under which their KV pages are interchangeable. ``limit``
-    caps the number of digests."""
-    n_full = len(token_ids) // page_size
-    if limit is not None:
-        n_full = min(n_full, max(0, limit))
-    out: List[bytes] = []
-    h = hashlib.blake2b(digest_size=16)
-    for i in range(n_full):
-        block = np.asarray(
-            token_ids[i * page_size : (i + 1) * page_size], np.int64
-        )
-        h.update(block.tobytes())
-        out.append(h.digest())
-    return out
 
 
 class PrefixPageIndex:

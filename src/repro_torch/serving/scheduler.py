@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.manager import ServiceCapabilities, ServiceResult
 from ..device import DeviceLike, resolve_device
 from ..models import (
     ModelConfig,
@@ -51,13 +52,10 @@ from ..models import (
     supports_append,
 )
 from ..models.cache import clone_caches, trim_cache_prefix
+from ..store.kv_ship import NodeShipProfile, PageShipment
 from ..tokenizer import EOS, IM_END, ByteLevelBPE, get_tokenizer
 from .chunked_prefill import PagedPrefiller, prime_fill_pages
 from .engine import (
-    NodeShipProfile,
-    PageShipment,
-    ServiceCapabilities,
-    ServiceResult,
     bucketed_prefill,
     chunked_append,
     export_entry_pages,
@@ -847,7 +845,7 @@ class _PendingBatched:
 class BatchedLLMService:
     """The :class:`BatchedServer` mounted as a node's LLM Service — the
     counterpart of ``repro.serving.scheduler.BatchedLLMService``. It
-    duck-types ``repro.core.manager.LLMServiceProtocol`` with
+    implements ``repro_torch.core.manager.LLMServiceProtocol`` with
     ``capabilities().batched`` set: concurrent sessions on the node share
     the server's continuous decode batch and session KV pool.
 

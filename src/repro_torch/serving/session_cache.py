@@ -63,7 +63,7 @@ WARM_SOURCES = {"prime": "tokens", "ship": "pages"}
 
 def warm_source_of(source: str) -> str:
     """Map a cache entry's provenance to the warm-start provenance label
-    reported in :class:`repro.core.protocol.Timing` ("tokens" | "pages" |
+    reported in :class:`repro_torch.core.protocol.Timing` ("tokens" | "pages" |
     "none")."""
     return WARM_SOURCES.get(source, "none")
 

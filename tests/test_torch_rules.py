@@ -37,7 +37,9 @@ _ISOLATED = textwrap.dedent(
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     ]
     for must in ("repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.kernels.decode_attention.ops"):
+                 "repro_torch.kernels.decode_attention.ops",
+                 "repro_torch.core.manager", "repro_torch.store.kv_ship",
+                 "repro_torch.edge.cluster", "repro_torch.launch.serve"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -57,8 +59,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module was walked, the dense route's kernel packages included
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    # every module was walked: the kernels, the serving stack and the
+    # DisCEdge system layers (core, store, edge, data, launch)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 67
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -67,10 +70,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.launch import serve
     from repro_torch.models import init_params, params_from_numpy
     from repro_torch.serving import BatchedLLMService, InferenceEngine, TorchLLMService
 
     cfg = PAPER_QWEN15_0_5B.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", PAPER_QWEN15_0_5B.name, "--turns", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine.create(cfg, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -45,6 +45,14 @@ non-zero):
                then timed at B = 1 and B = 8 over 1250 valid slots and at
                Zamba2's B = 1 (MHA 32 x 112), each shape run twice on the
                same inputs for identical outputs; B = 1 must split;
+   gqa      — K1, K2 (with K1's continuation), K3, K4 and K5 vs their
+               plain versions at the GQA groups of granite-moe (24/8 x 64,
+               G = 3) and qwen2 (14/2 x 64, G = 7), bf16 and f32: ragged
+               page bounds, planned and forced splits, queries inside and
+               past a shared run, chunks whose S·G is no multiple of K3's
+               64-row tile, p0 inside a key tile, window x softcap; then
+               each timed at its model's serving shape beside SDPA (K/V
+               expanded per query head) and its bound;
 7. main     — TorchLLMService at the full width of the paper's
                Qwen1.5-0.5B (random weights from a seed) serves 3 sessions
                x 3 turns of tokenized context on the paged route; turns 2-3
@@ -126,7 +134,28 @@ non-zero):
                start on turn 3 ("tokens" / "pages"); prints per-run
                response times, sync and request bytes and the paper's two
                comparisons (``{"discedge_path": ...}``);
-18. result  — JSON lines with every kernel's numbers (K1-K6), the card's
+18. qwen2-0.5b — the full-width Qwen2-0.5B (random bf16 weights, GQA
+               14/2): 2 sessions x 2 turns on the paged route (K3 + K1) and
+               on the dense route (K4 + K5) with exact launch counts, and a
+               teacher-forced turn through the kernel and plain paths
+               within QWEN2_LOGIT_TOL;
+19. granite-moe-3b-a800m — the full-width MoE decoder (32 layers, 40
+               experts top-8, GQA 24/8; ~6.7 GB of bf16 weights, nothing
+               cut): 3 sessions x 2 turns on the paged route with exact
+               launch counts, a teacher-forced turn in bf16 (routing flips
+               of free routing counted; bounded with the kernel path routed
+               as the plain path), a profiled decode step, a batched wave of
+               8 tenants sharing a system prompt (K1, K2, K3), and the same
+               teacher-forced check in f32 over the first 4 layers;
+20. fleet   — four nodes of the full-width paper model, each an
+               AdaptiveLLMService over a paged TorchLLMService and a paged
+               BatchedLLMService, residency routing and admission control
+               (``EdgeCluster.build(router=..., admission_limit=...)``),
+               driven by ``run_fleet`` with a crash and a restart: no hung
+               ticket, flips both ways, turns on both mounts, K1, K2 and K3
+               launched (counted per mount), batched turns equal to a fresh
+               single-stream service's tokens (``{"fleet_path": ...}``);
+21. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
 
@@ -135,6 +164,7 @@ Imports nothing of JAX or of the ``repro`` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -270,22 +300,22 @@ class _forced_splits:
         kernel.plan_splits = self.saved
 
 
-def _k1_check(name, out, again, want) -> float:
+def _k1_check(name, out, again, want, tol=K1_TOL) -> float:
+    """A kernel's output against its plain version: finite, two runs
+    identical, max |diff| <= ``tol``."""
     import torch
 
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all(), name
     assert torch.equal(out, again), f"K1 {name}: two runs differ"
     e = (out.float() - want.float()).abs().max().item()
-    assert e <= K1_TOL, f"K1 {name}: {e} > {K1_TOL}"
+    assert e <= tol, f"K1 {name}: {e} > {tol}"
     return e
 
 
 def phase_k1(dev, n_layers: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda, paged_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
     err = 0.0
@@ -341,55 +371,72 @@ def phase_k1(dev, n_layers: int) -> dict:
     # the main path's shapes, MHA 16 x 64, one input set per layer: B = 1
     # over a 1024-token lane (the engine), and B = 8 over 1048-1096 tokens
     # each (the batched server's lanes, taken by the single pass)
-    Hh, KV, Dh = 16, 16, 64
-    for shape, lens in (("B=1", (1024,)), ("B=8", tuple(1024 + s for s in (24, 31, 38, 45, 52,
-                                                                            59, 66, 72)))):
-        B = len(lens)
-        sets = [_paged_case(gen, lens, Hh, KV, Dh, torch.bfloat16, dev) for _ in range(n_layers)]
-        mp = sets[0][3].shape[1]
-        splits, grid = paged_plan(B, KV, mp, PS)
-        log(f"K1 {shape}: {_k1_plan_str(B, KV, mp, PS)}")
-        if B == 1:
-            assert splits > 1, "K1 must split the walk across a cluster at B = 1"
-        prepared = []
-        for q, pk, pv, table, q_pos, kv_pos in sets:
-            qp = q_pos.reshape(B)
-            bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
-            prepared.append((q.reshape(B, KV, Hh // KV, Dh).contiguous(), pk, pv, table, bound,
-                             qp.contiguous(), kv_pos))
-        # the launch the main path makes (MHA, planned splits), held to the
-        # plain version on the same inputs
-        first, again = (paged_attention_cuda(*prepared[0]) for _ in range(2))
-        e = _k1_check(f"{shape} main path ({splits} splits)", first.reshape(B, 1, Hh, Dh),
-                      again.reshape(B, 1, Hh, Dh), ref.paged_attention_ref(*sets[0]))
+    for shape, lens in (("B=1", (1024,)), ("B=8", SERVER_LANES)):
+        stats, e = _k1_timed(dev, gen, shape, lens, 16, 16, 64, n_layers)
         out["max_abs_err"] = max(out["max_abs_err"], e)
-        kernel_ms = device_time_ms([lambda a=a: paged_attention_cuda(*a) for a in prepared])
-        plain_ms = device_time_ms([lambda s=s: ref.paged_attention_ref(*s) for s in sets])
-        lib_args = []
-        for q, pk, pv, table, q_pos, kv_pos in sets:
-            k = pk[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2).contiguous()
-            v = pv[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2).contiguous()
-            mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
-            lib_args.append((q.transpose(1, 2).contiguous(), k, v, mask))
-        library_ms = device_time_ms(
-            [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
-             for a in lib_args])
-        visited = sum(lens)                                   # bound * ps per lane
-        nbytes = (2 * visited * KV * Dh * 2 + 2 * B * Hh * Dh * 2
-                  + 4 * (visited + sum(-(-n // PS) for n in lens) + 2 * B))
-        bound_ms, bound_by = _bound(nbytes, 4 * Hh * Dh * visited)
-        log(f"K1 {shape} (tokens {min(lens)}-{max(lens)}): kernel_ms {kernel_ms:.5f} plain_ms "
-            f"{plain_ms:.5f} library_ms {library_ms:.5f} (SDPA on the gathered view) bound_ms "
-            f"{bound_ms:.6f} ({bound_by}); max_abs_err {e:.3e} (bound {K1_TOL}); "
-            f"two runs identical; "
-            f"{'below' if kernel_ms < library_ms else 'NOT below'} SDPA")
-        stats = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, splits=splits, grid=grid)
-        if B == 1:
-            out.update(stats)
-        else:
-            out.update({f"b8_{k}": v for k, v in stats.items()})
+        out.update(stats if len(lens) == 1 else {f"b8_{k}": v for k, v in stats.items()})
     return out
+
+
+# the batched server's lanes at its B = 8 decode step: 1048-1096 tokens
+SERVER_LANES = tuple(1024 + s for s in (24, 31, 38, 45, 52, 59, 66, 72))
+
+
+def _expand_kv(t, g):
+    """(B, KV, T, Dh) -> (B, KV * g, T, Dh): K/V per query head, for SDPA's
+    yardstick at GQA shapes (expanded outside the timed region)."""
+    return t if g == 1 else t.repeat_interleave(g, dim=1).contiguous()
+
+
+def _k1_timed(dev, gen, shape, lens, H, KV, Dh, n_layers) -> tuple:
+    """K1 at one serving shape (bf16, ps 16, one input set per layer): the
+    launch the path makes (planned splits) held to the plain version on the
+    same inputs, twice for identical bits, then timed beside the plain
+    version and SDPA on the gathered view. Returns (stats, max_abs_err)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda, paged_plan
+
+    B, G = len(lens), H // KV
+    sets = [_paged_case(gen, lens, H, KV, Dh, torch.bfloat16, dev) for _ in range(n_layers)]
+    mp = sets[0][3].shape[1]
+    splits, grid = paged_plan(B, KV, mp, PS)
+    log(f"K1 {shape}: {_k1_plan_str(B, KV, mp, PS)}")
+    if B == 1:
+        assert splits > 1, "K1 must split the walk across a cluster at B = 1"
+    prepared = []
+    for q, pk, pv, table, q_pos, kv_pos in sets:
+        qp = q_pos.reshape(B)
+        bound = torch.clamp((qp + PS) // PS, 1, table.shape[1]).to(torch.int32)
+        prepared.append((q.reshape(B, KV, G, Dh).contiguous(), pk, pv, table, bound,
+                         qp.contiguous(), kv_pos))
+    first, again = (paged_attention_cuda(*prepared[0]) for _ in range(2))
+    e = _k1_check(f"{shape} main path ({splits} splits)", first.reshape(B, 1, H, Dh),
+                  again.reshape(B, 1, H, Dh), ref.paged_attention_ref(*sets[0]))
+    kernel_ms = device_time_ms([lambda a=a: paged_attention_cuda(*a) for a in prepared])
+    plain_ms = device_time_ms([lambda s=s: ref.paged_attention_ref(*s) for s in sets])
+    lib_args = []
+    for q, pk, pv, table, q_pos, kv_pos in sets:
+        k = pk[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2)
+        v = pv[table.long()].reshape(B, -1, KV, Dh).transpose(1, 2)
+        mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
+        lib_args.append((q.transpose(1, 2).contiguous(), _expand_kv(k.contiguous(), G),
+                         _expand_kv(v.contiguous(), G), mask))
+    library_ms = device_time_ms(
+        [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
+         for a in lib_args])
+    visited = sum(lens)                                   # bound * ps per lane
+    nbytes = (2 * visited * KV * Dh * 2 + 2 * B * H * Dh * 2
+              + 4 * (visited + sum(-(-n // PS) for n in lens) + 2 * B))
+    bound_ms, bound_by = _bound(nbytes, 4 * H * Dh * visited)
+    log(f"K1 {shape} (tokens {min(lens)}-{max(lens)}, {H}/{KV} x {Dh}): kernel_ms "
+        f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} (SDPA on the "
+        f"gathered view) bound_ms {bound_ms:.6f} ({bound_by}); max_abs_err {e:.3e} (bound "
+        f"{K1_TOL}); two runs identical; "
+        f"{'below' if kernel_ms < library_ms else 'NOT below'} SDPA")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, splits=splits, grid=grid), e
 
 
 def _bound(nbytes: float, flops: float):
@@ -414,8 +461,9 @@ def _chunk_case(gen, p0s, lens, S, H, KV, Dh, mp, dtype, dev, ps=PS):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def _check_chunk(name, ops, ref, args, lens, window, cap) -> float:
-    """K3 vs its plain version over the rows that are read (bf16)."""
+def _check_chunk(name, ops, ref, args, lens, window, cap, tol=K3_TOL) -> float:
+    """K3 vs its plain version over the rows that are read (bf16, or f32
+    with ``tol``)."""
     import torch
 
     out = ops.chunked_prefill_attention(*args, window=window, softcap=cap)
@@ -424,16 +472,14 @@ def _check_chunk(name, ops, ref, args, lens, window, cap) -> float:
     e = max((out[b, :n].float() - want[b, :n].float()).abs().max().item()
             for b, n in enumerate(lens))
     assert all(torch.isfinite(out[b, :n].float()).all() for b, n in enumerate(lens)), name
-    log(f"K3 {name}: max_abs_err {e:.3e} over read rows (bound {K3_TOL})")
-    assert e <= K3_TOL, f"K3 {name}: {e} > {K3_TOL}"
+    log(f"K3 {name}: max_abs_err {e:.3e} over read rows (bound {tol})")
+    assert e <= tol, f"K3 {name}: {e} > {tol}"
     return e
 
 
 def phase_k3(dev, n_layers: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.chunked_prefill import ops, ref
-    from repro_torch.kernels.chunked_prefill.kernel import chunked_prefill_cuda
 
     gen = torch.Generator(device=dev).manual_seed(2)
     S, err = 256, 0.0
@@ -462,17 +508,31 @@ def phase_k3(dev, n_layers: int) -> dict:
         args = _chunk_case(gen, p0s, lens, S_e, H, KV, Dh, mp, torch.bfloat16, dev, ps=ps)
         err = max(err, _check_chunk(f"edges {name}", ops, ref, args, lens, window, cap))
 
-    # main-path shape: B = 1, a 256-token chunk at p0 = 768 (1024-token
-    # prefix), MHA 16 x 64, one input set per layer
-    p0, H, KV, Dh, mp = 768, 16, 16, 64, 64
+    return dict({"name": "chunked_prefill", "route": "cuda",
+                 "source": "src/repro_torch/csrc/chunked_prefill.cu",
+                 "replaces": "src/repro/kernels/chunked_prefill/kernel.py:154",
+                 "max_abs_err": err}, **_k3_timed(dev, gen, 16, 16, 64, n_layers))
+
+
+def _k3_timed(dev, gen, H, KV, Dh, n_layers) -> dict:
+    """K3 at the main path's chunk shape: B = 1, a 256-token chunk at p0 =
+    768 (1024-token prefix), one input set per layer, timed beside the
+    plain version and SDPA with a causal mask (K/V gathered and, at GQA
+    shapes, expanded per query head outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.chunked_prefill import ref
+    from repro_torch.kernels.chunked_prefill.kernel import chunked_prefill_cuda
+
+    S, p0, mp, G = 256, 768, 64, H // KV
     sets = [_chunk_case(gen, (p0,), (S,), S, H, KV, Dh, mp, torch.bfloat16, dev)
             for _ in range(n_layers)]
     prepared = []
     for q, pk, pv, table, p0t, tl in sets:
         bound = torch.clamp((p0t + tl + PS - 1) // PS, 1, mp).to(torch.int32)
-        qr = q.reshape(1, S, KV, 1, Dh).permute(0, 2, 1, 3, 4).reshape(1, KV, S, Dh).contiguous()
-        prepared.append((qr, pk, pv, table, bound, p0t))
-    kernel_ms = device_time_ms([lambda a=a: chunked_prefill_cuda(*a, g=1) for a in prepared])
+        qr = q.reshape(1, S, KV, G, Dh).permute(0, 2, 1, 3, 4).reshape(1, KV, S * G, Dh)
+        prepared.append((qr.contiguous(), pk, pv, table, bound, p0t))
+    kernel_ms = device_time_ms([lambda a=a: chunked_prefill_cuda(*a, g=G) for a in prepared])
     plain_ms = device_time_ms([lambda s=s: ref.chunked_prefill_ref(*s) for s in sets])
     t = p0 + S
     lib_args = []
@@ -481,7 +541,7 @@ def phase_k3(dev, n_layers: int) -> dict:
     for q, pk, pv, table, _, _ in sets:
         k = pk[table.long()].reshape(1, -1, KV, Dh)[:, :t].transpose(1, 2).contiguous()
         v = pv[table.long()].reshape(1, -1, KV, Dh)[:, :t].transpose(1, 2).contiguous()
-        lib_args.append((q.transpose(1, 2).contiguous(), k, v))
+        lib_args.append((q.transpose(1, 2).contiguous(), _expand_kv(k, G), _expand_kv(v, G)))
     library_ms = device_time_ms(
         [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=mask)
          for a in lib_args]
@@ -490,15 +550,11 @@ def phase_k3(dev, n_layers: int) -> dict:
     nbytes = 2 * t * KV * Dh * 2 + 2 * S * H * Dh * 2 + 4 * (mp + 2)
     flops = 4 * H * Dh * visible
     bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"K3 main shape (B=1, S {S}, p0 {p0}): kernel_ms {kernel_ms:.5f} plain_ms "
-        f"{plain_ms:.5f} library_ms {library_ms:.5f} bound_ms {bound_ms:.6f} ({bound_by})")
-    return {
-        "name": "chunked_prefill", "route": "cuda",
-        "source": "src/repro_torch/csrc/chunked_prefill.cu",
-        "replaces": "src/repro/kernels/chunked_prefill/kernel.py:154",
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }
+    log(f"K3 main shape (B=1, S {S}, p0 {p0}, {H}/{KV} x {Dh}): kernel_ms {kernel_ms:.5f} "
+        f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms {bound_ms:.6f} "
+        f"({bound_by})")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -550,13 +606,8 @@ def _stats_err(got, want) -> dict:
 
 def phase_k2(dev, n_layers: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
-    from repro_torch.kernels.paged_attention.kernel import (
-        paged_attention_cuda,
-        shared_prefix_cuda,
-        shared_prefix_plan,
-    )
+    from repro_torch.kernels.paged_attention.kernel import shared_prefix_plan
 
     gen = torch.Generator(device=dev).manual_seed(3)
     n_run = 64
@@ -592,10 +643,30 @@ def phase_k2(dev, n_layers: int) -> dict:
                 "K2: a fully masked run must leave m = -1e30, l = 0"
         err = max(err, e["m"], e["acc_over_l"])
 
-    # the batched server's shape: B = 8 lanes past a 64-page run, MHA
-    # 16 x 64, one input set per layer
-    sfx = (24, 31, 38, 45, 52, 59, 66, 72)
-    B, H, KV, Dh, T = len(sfx), 16, 16, 64, n_run * PS
+    return dict({"name": "shared_prefix", "route": "cuda",
+                 "source": "src/repro_torch/csrc/shared_prefix.cu",
+                 "replaces": "src/repro/kernels/paged_attention/kernel.py:228",
+                 "max_abs_err": err}, **_k2_timed(dev, gen, 16, 16, 64, n_layers))
+
+
+def _k2_timed(dev, gen, H, KV, Dh, n_layers) -> dict:
+    """K2 at the batched server's shape: B = 8 lanes past a 64-page run,
+    one input set per layer (it must split; two runs identical), timed
+    beside its plain version and SDPA over the gathered run; K1's
+    continuation and K1's single pass at the same lanes, and the cascade
+    held against the single pass (or both printed with the reason when it
+    is slower)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda,
+        shared_prefix_cuda,
+        shared_prefix_plan,
+    )
+
+    n_run, sfx = 64, tuple(n - 1024 for n in SERVER_LANES)
+    B, T, G = len(sfx), n_run * PS, H // KV
     sets = [_shared_case(gen, n_run, sfx, H, KV, Dh, torch.bfloat16, dev)
             for _ in range(n_layers)]
     prepared = []
@@ -605,8 +676,10 @@ def phase_k2(dev, n_layers: int) -> dict:
         qr = q.reshape(B, KV, H // KV, Dh).contiguous()
         prepared.append((qr, pk, pv, sp, qp, table, bound, kv_pos))
     lanes, splits, grid = shared_prefix_plan(B, KV, H // KV, Dh, T)
-    log(f"K2 server shape: {_k2_plan_str(shared_prefix_plan, B, KV, H // KV, Dh, n_run)}")
-    assert splits > 1 and grid[1] * grid[2] == KV, "K2 must split the run across a cluster"
+    log(f"K2 server shape {H}/{KV} x {Dh}: "
+        f"{_k2_plan_str(shared_prefix_plan, B, KV, H // KV, Dh, n_run)}")
+    assert splits > 1 and grid[1] * grid[2] == KV * -(-B // lanes), \
+        "K2 must split the run across a cluster"
     first, again = (shared_prefix_cuda(*prepared[0][:5]) for _ in range(2))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, again)), "K2: two runs differ"
@@ -628,7 +701,7 @@ def phase_k2(dev, n_layers: int) -> dict:
         v = pv[sp.long()].reshape(T, KV, Dh).transpose(0, 1)[None].contiguous()
         rows = qr.permute(1, 0, 2, 3).reshape(1, KV, B * (H // KV), Dh).contiguous()
         mask = kp <= qp.repeat_interleave(H // KV)[:, None]     # (B*G, T) causal
-        lib_args.append((rows, k, v, mask))
+        lib_args.append((rows, k, v, mask))   # one head per KV head: G * B rows each
     library_ms = device_time_ms(
         [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
          for a in lib_args])
@@ -640,7 +713,7 @@ def phase_k2(dev, n_layers: int) -> dict:
     lane_tokens = [n_run * PS + s + 1 for s in sfx]          # visited by the single pass
     single_bytes = sum(2 * t * KV * Dh * 2 for t in lane_tokens)
     suffix_bytes = sum(2 * (t - T) * KV * Dh * 2 for t in lane_tokens)
-    log(f"K2 server shape (B={B}, run {n_run} pages = {T} tokens, MHA {H} x {Dh}): "
+    log(f"K2 server shape (B={B}, run {n_run} pages = {T} tokens, {H}/{KV} x {Dh}): "
         f"kernel_ms {k2_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} "
         f"bound_ms {bound_ms:.6f} ({bound_by}, {nbytes} B)")
     log(f"K1 at the same lanes: continuation over the suffixes (start {n_run}) "
@@ -659,10 +732,7 @@ def phase_k2(dev, n_layers: int) -> dict:
             f"add), while its K/V bytes save {(single_bytes - run_bytes - suffix_bytes) / HBM_BYTES_PER_S * 1e3:.5f} ms "
             f"at the HBM rate")
     return {
-        "name": "shared_prefix", "route": "cuda",
-        "source": "src/repro_torch/csrc/shared_prefix.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:228",
-        "max_abs_err": err, "ms": k2_ms, "plain_ms": plain_ms,
+        "ms": k2_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "k1_continuation_ms": cont_ms, "k1_single_pass_ms": single_ms,
         "k1_single_pass_kv_bytes": single_bytes,
@@ -742,9 +812,7 @@ def _check_linear(name, op, ref, cases, gen, dev, dtypes=None) -> float:
 
 def phase_k4(dev, n_layers: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
     gen = torch.Generator(device=dev).manual_seed(4)
     # (label, p0s, lens, S, T, H, KV, Dh, window, softcap): full prefills
@@ -788,40 +856,50 @@ def phase_k4(dev, n_layers: int) -> dict:
     for shape, p0, S, T, H, Dh in (("prefill", 0, 1024, 1024, 16, 64),
                                    ("append", 1024, 256, 2048, 16, 64),
                                    ("zamba2", 0, 1024, 1024, 32, 112)):
-        KV = H
-        sets = [_linear_case(gen, (p0,), (S,), S, T, H, KV, Dh, torch.bfloat16, dev)
-                for _ in range(n_layers)]
-        i32 = [(q, k, v, qp, kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
-        kernel_ms = device_time_ms([lambda a=a: flash_attention_cuda(*a) for a in i32])
-        plain_ms = device_time_ms([lambda a=a: ref.flash_attention_ref(*a) for a in sets])
-        n_kv = p0 + S
-        rows = torch.arange(S, device=dev)[:, None] + p0
-        mask = torch.arange(n_kv, device=dev)[None, :] <= rows           # causal (S, n_kv)
-        lib = [(q.transpose(1, 2).contiguous(), k[:, :n_kv].transpose(1, 2).contiguous(),
-                v[:, :n_kv].transpose(1, 2).contiguous()) for q, k, v, *_ in sets]
-        library_ms = device_time_ms(
-            [lambda a=a: F.scaled_dot_product_attention(*a, attn_mask=mask) for a in lib])
-        visible = S * p0 + S * (S + 1) // 2                             # causal (row, key) pairs
-        nbytes = 2 * n_kv * KV * Dh * 2 + 2 * S * H * Dh * 2 + 4 * (S + 2 * T)
-        bound_ms, bound_by = _bound(nbytes, 4 * H * Dh * visible)
-        log(f"K4 {shape} shape (B=1, S {S}, p0 {p0}, T {T}, MHA {H} x {Dh}): kernel_ms "
-            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
-            f"{bound_ms:.6f} ({bound_by})")
-        if shape == "prefill":
-            out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-        else:
-            out.update({f"{shape}_ms": kernel_ms, f"{shape}_plain_ms": plain_ms,
-                        f"{shape}_library_ms": library_ms, f"{shape}_bound_ms": bound_ms,
-                        f"{shape}_bound_by": bound_by})
+        stats = _k4_timed(dev, gen, shape, p0, S, T, H, H, Dh, n_layers)
+        out.update(stats if shape == "prefill" else
+                   {f"{shape}_{k}": v for k, v in stats.items()})
     return out
+
+
+def _k4_timed(dev, gen, shape, p0, S, T, H, KV, Dh, n_layers) -> dict:
+    """K4 at one serving shape (B = 1, queries at p0 + [0, S) against T
+    slots, bf16, one input set per layer), timed beside its plain version
+    and SDPA with a causal mask (K/V expanded per query head at GQA
+    shapes, outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    G = H // KV
+    sets = [_linear_case(gen, (p0,), (S,), S, T, H, KV, Dh, torch.bfloat16, dev)
+            for _ in range(n_layers)]
+    i32 = [(q, k, v, qp, kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
+    kernel_ms = device_time_ms([lambda a=a: flash_attention_cuda(*a) for a in i32])
+    plain_ms = device_time_ms([lambda a=a: ref.flash_attention_ref(*a) for a in sets])
+    n_kv = p0 + S
+    rows = torch.arange(S, device=dev)[:, None] + p0
+    mask = torch.arange(n_kv, device=dev)[None, :] <= rows           # causal (S, n_kv)
+    lib = [(q.transpose(1, 2).contiguous(),
+            _expand_kv(k[:, :n_kv].transpose(1, 2).contiguous(), G),
+            _expand_kv(v[:, :n_kv].transpose(1, 2).contiguous(), G)) for q, k, v, *_ in sets]
+    library_ms = device_time_ms(
+        [lambda a=a: F.scaled_dot_product_attention(*a, attn_mask=mask) for a in lib])
+    visible = S * p0 + S * (S + 1) // 2                             # causal (row, key) pairs
+    nbytes = 2 * n_kv * KV * Dh * 2 + 2 * S * H * Dh * 2 + 4 * (S + 2 * T)
+    bound_ms, bound_by = _bound(nbytes, 4 * H * Dh * visible)
+    log(f"K4 {shape} shape (B=1, S {S}, p0 {p0}, T {T}, {H}/{KV} x {Dh}): kernel_ms "
+        f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
+        f"{bound_ms:.6f} ({bound_by})")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_k5(dev, n_layers: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda, decode_plan
+    from repro_torch.kernels.decode_attention.kernel import decode_plan
 
     gen = torch.Generator(device=dev).manual_seed(5)
     T = 2048
@@ -838,7 +916,6 @@ def phase_k5(dev, n_layers: int) -> dict:
         log(f"K5 {label}: {_k5_plan_str(decode_plan, len(p0s), H, KV, Dh, T)}")
     err = _check_linear("K5", ops.decode_attention, ref.decode_attention_ref, cases, gen, dev)
 
-    n_valid = 1250
     out = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
            "replaces": "src/repro/kernels/decode_attention/kernel.py:96", "max_abs_err": err}
@@ -847,45 +924,181 @@ def phase_k5(dev, n_layers: int) -> dict:
     # and Zamba2's shared attention block (MHA 32 x 112) at B = 1
     for name, B, H, KV, Dh in (("B=1", 1, 16, 16, 64), ("B=8", 8, 16, 16, 64),
                                ("zamba2 B=1", 1, 32, 32, 112)):
-        splits, grid = decode_plan(B, KV, T)
-        log(f"K5 {name}: {_k5_plan_str(decode_plan, B, H, KV, Dh, T)}")
-        if B == 1:
-            assert splits > 1, "K5 must split the walk across a cluster at B = 1"
-        sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
-                             torch.bfloat16, dev) for _ in range(n_layers)]
-        prep = [(q.reshape(B, KV, H // KV, Dh).contiguous(), k, v, qp.reshape(B).contiguous(),
-                 kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
-        first, again = (decode_attention_cuda(*prep[0]) for _ in range(2))
-        torch.cuda.synchronize()
-        assert torch.equal(first, again), f"K5 {name}: two runs differ"
-        kernel_ms = device_time_ms([lambda a=a: decode_attention_cuda(*a) for a in prep])
-        plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a) for a in sets])
-        lib = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), va[:, None, None, :]) for q, k, v, _, _, va in sets]
-        library_ms = device_time_ms(
-            [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
-             for a in lib])
-        nbytes = B * (2 * n_valid * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (1 + 2 * T))
-        bound_ms, bound_by = _bound(nbytes, B * 4 * H * Dh * n_valid)
-        log(f"K5 {name} (T {T}, {n_valid} valid slots, MHA {H} x {Dh}): kernel_ms "
-            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
-            f"{bound_ms:.6f} ({bound_by}, {nbytes} B); two runs identical")
-        if name == "B=1":
-            out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, splits=splits, grid=grid)
-        else:
-            key = "b8" if B == 8 else "zamba2"
-            out.update({f"{key}_ms": kernel_ms, f"{key}_plain_ms": plain_ms,
-                        f"{key}_library_ms": library_ms, f"{key}_bound_ms": bound_ms,
-                        f"{key}_bound_by": bound_by, f"{key}_splits": splits,
-                        f"{key}_grid": grid})
+        stats = _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers)
+        out.update(stats if name == "B=1" else
+                   {f"{'b8' if B == 8 else 'zamba2'}_{k}": v for k, v in stats.items()})
     return out
+
+
+def _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers, T=2048, n_valid=1250) -> dict:
+    """K5 at one serving shape: one decode query per lane against ``T``
+    slots holding ``n_valid`` tokens (bf16, one input set per layer), run
+    twice for identical bits, timed beside its plain version and SDPA with
+    a bool mask (K/V expanded per query head at GQA shapes, outside the
+    timed region)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda, decode_plan
+
+    G = H // KV
+    splits, grid = decode_plan(B, KV, T)
+    log(f"K5 {name}: {_k5_plan_str(decode_plan, B, H, KV, Dh, T)}")
+    if B == 1:
+        assert splits > 1, "K5 must split the walk across a cluster at B = 1"
+    sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
+                         torch.bfloat16, dev) for _ in range(n_layers)]
+    prep = [(q.reshape(B, KV, G, Dh).contiguous(), k, v, qp.reshape(B).contiguous(),
+             kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
+    first, again = (decode_attention_cuda(*prep[0]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again), f"K5 {name}: two runs differ"
+    kernel_ms = device_time_ms([lambda a=a: decode_attention_cuda(*a) for a in prep])
+    plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a) for a in sets])
+    lib = [(q.transpose(1, 2).contiguous(), _expand_kv(k.transpose(1, 2).contiguous(), G),
+            _expand_kv(v.transpose(1, 2).contiguous(), G), va[:, None, None, :])
+           for q, k, v, _, _, va in sets]
+    library_ms = device_time_ms(
+        [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
+         for a in lib])
+    nbytes = B * (2 * n_valid * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (1 + 2 * T))
+    bound_ms, bound_by = _bound(nbytes, B * 4 * H * Dh * n_valid)
+    log(f"K5 {name} (T {T}, {n_valid} valid slots, {H}/{KV} x {Dh}): kernel_ms "
+        f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
+        f"{bound_ms:.6f} ({bound_by}, {nbytes} B); two runs identical")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, splits=splits, grid=grid)
 
 
 def _k5_plan_str(plan, B, H, KV, Dh, T) -> str:
     splits, grid = plan(B, KV, T)
     return (f"B={B} H={H} KV={KV} Dh={Dh} T={T} -> splits {splits}, grid {grid} = "
             f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
+
+
+# ---------------------------------------------------------------------------
+# K1-K5 at the GQA groups of the MoE and Qwen2 models: granite-moe-3b-a800m
+# (24/8 x 64, G = 3) and qwen2-0.5b (14/2 x 64, G = 7)
+# ---------------------------------------------------------------------------
+
+GQA_MODELS = (("granite", 24, 8, 64), ("qwen2", 14, 2, 64))
+GQA_F32_TOL = 1e-4   # K1-K5 in f32 (TF32 off) at these shapes: K45_F32_TOL,
+                     # the same f32 products summed in another order
+
+
+def phase_gqa(dev, n_layers: int) -> dict:
+    """K1, K2 (with K1's continuation), K3, K4 and K5 against their plain
+    versions at granite's (24/8 x 64, G = 3) and qwen2's (14/2 x 64, G = 7)
+    head layouts, in bf16 and in f32: K1 on ragged lanes (an empty one,
+    page bounds mid-page) at ps 8/16/64 with planned and forced 1/8
+    splits, window x softcap; K2's stats and the cascade (K2 + K1's
+    continuation, forced 1/8 splits too) with queries inside, at the end of
+    and past a 256-token run; K3 with chunks whose S·G is no multiple of
+    its 64-row tile (S 1, 17, 150, 256), p0 inside a key tile and a page,
+    ps 8/16/64, window x softcap; K4 prefills and appends with p0 inside a
+    key tile; K5 at B = 1 and ragged B = 8. Then each kernel timed at its
+    model's serving shape beside its plain version, SDPA and its bound.
+    Returns {"errors": bf16 max abs error per kernel, "timed": {model:
+    {kernel: stats}}}."""
+    import torch
+    from repro_torch.kernels.chunked_prefill import ops as chunk_ops
+    from repro_torch.kernels.chunked_prefill import ref as chunk_ref
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = dict.fromkeys(("paged_attention", "shared_prefix", "chunked_prefill",
+                          "flash_attention", "decode_attention"), 0.0)
+    timed = {}
+    for model, H, KV, Dh in GQA_MODELS:
+        G = H // KV
+        tag = f"{model} {H}/{KV} x {Dh} (G = {G})"
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            dn = str(dtype)[6:]
+            k1 = k2 = k2c = 0.0
+            for ps in (8, 16, 64):
+                lens = (0, 1, 2 * ps + 3, 300, 777, 1024)
+                args = _paged_case(gen, lens, H, KV, Dh, dtype, dev, ps=ps)
+                cont, sp = _shared_case(gen, 256 // ps, (-100, -1, 0, 1, 21, 300), H, KV, Dh,
+                                        dtype, dev, ps=ps)
+                q, pk, pv, _, q_pos, _ = cont
+                qr = q.reshape(q.shape[0], KV, G, Dh)
+                got = paged_ops.shared_prefix(qr, pk, pv, sp, q_pos.reshape(-1))
+                want = paged_ref.shared_prefix_ref(qr, pk, pv, sp, q_pos.reshape(-1))
+                torch.cuda.synchronize()
+                e2 = _stats_err(got, want)
+                assert max(e2.values()) <= (K2_STATS_TOL if bf16 else GQA_F32_TOL), (tag, ps, e2)
+                k2 = max(k2, e2["m"], e2["acc_over_l"])
+                for splits in (None, 1, 8):
+                    with _forced_splits(splits) if splits else contextlib.nullcontext():
+                        for window, cap in ((0, 0.0), (200, 30.0)):
+                            run = lambda: paged_ops.paged_attention(  # noqa: E731
+                                *args, window=window, softcap=cap)
+                            out = run()
+                            k1 = max(k1, _k1_check(
+                                f"{tag} {dn} ps {ps} splits {splits or 'planned'} window "
+                                f"{window}", out, run(),
+                                paged_ref.paged_attention_ref(*args, window=window, softcap=cap),
+                                K1_TOL if bf16 else GQA_F32_TOL))
+                            assert (out[0] == 0).all(), f"K1 {tag}: empty lane not exact zeros"
+                        run = lambda: paged_ops.paged_attention(*cont, sp)  # noqa: E731
+                        k2c = max(k2c, _k1_check(
+                            f"cascade {tag} {dn} ps {ps} splits {splits or 'planned'}", run(),
+                            run(), paged_ref.paged_attention_ref(*cont),
+                            K1_TOL if bf16 else GQA_F32_TOL))
+            log(f"K1 {tag} {dn}: ragged lanes at ps 8/16/64, planned and forced 1/8 splits, "
+                f"window x softcap, two runs identical: max_abs_err {k1:.3e}; K2 stats max "
+                f"err {k2:.3e}; cascade (K2 + K1 continuation) vs plain single pass "
+                f"{k2c:.3e}")
+            k3 = 0.0
+            for S, ps, window, cap in ((150, 16, 0, 0.0), (17, 8, 37, 30.0), (1, 64, 0, 0.0),
+                                       (256, 16, 100, 30.0)):
+                p0s, lens = (0, 5, 77, 130), (S, max(S - 3, 1), 1, S)
+                mp = -(-(max(p0s) + S) // ps) + 1
+                args = _chunk_case(gen, p0s, lens, S, H, KV, Dh, mp, dtype, dev, ps=ps)
+                k3 = max(k3, _check_chunk(
+                    f"{tag} {dn} S {S} (S*G {S * G}) ps {ps} p0 0/5/77/130 window {window}",
+                    chunk_ops, chunk_ref, args, lens, window, cap,
+                    K3_TOL if bf16 else GQA_F32_TOL))
+            lens8 = (1, 128, 700, 1250, 1251, 1300, 1900, 2048)
+            k4 = _check_linear("K4", flash_ops.flash_attention, flash_ref.flash_attention_ref, [
+                (f"{tag} prefill ragged", (0, 0, 0), (1024, 700, 1), 1024, 1024, H, KV, Dh, 0,
+                 0.0),
+                (f"{tag} append p0 1000/37", (1000, 37), (256, 100), 256, 2048, H, KV, Dh, 0,
+                 0.0),
+                (f"{tag} S 17 p0 5/70 window 37 x softcap", (5, 70), (17, 9), 17, 100, H, KV, Dh,
+                 37, 30.0),
+                (f"{tag} S 150 T 300 p0 0/130 window 20", (0, 130), (150, 150), 150, 300, H, KV,
+                 Dh, 20, 0.0),
+            ], gen, dev, dtypes=(dtype,))
+            k5 = _check_linear("K5", dec_ops.decode_attention, dec_ref.decode_attention_ref, [
+                (f"{tag} B=1", (1249,), (1,), 1, 2048, H, KV, Dh, 0, 0.0),
+                (f"{tag} B=8 ragged", tuple(n - 1 for n in lens8), (1,) * 8, 1, 2048, H, KV, Dh,
+                 0, 0.0),
+                (f"{tag} B=8 window x softcap", tuple(n - 1 for n in lens8), (1,) * 8, 1, 2048,
+                 H, KV, Dh, 300, 30.0),
+            ], gen, dev, dtypes=(dtype,))
+            if bf16:
+                for key, e in (("paged_attention", max(k1, k2c)), ("shared_prefix", k2),
+                               ("chunked_prefill", k3), ("flash_attention", k4),
+                               ("decode_attention", k5)):
+                    errs[key] = max(errs[key], e)
+        timed[model] = {
+            "paged_attention": _k1_timed(dev, gen, f"{model} B=1", (1024,), H, KV, Dh,
+                                         n_layers)[0],
+            "shared_prefix": _k2_timed(dev, gen, H, KV, Dh, n_layers),
+            "chunked_prefill": _k3_timed(dev, gen, H, KV, Dh, n_layers),
+            "flash_attention": _k4_timed(dev, gen, f"{model} prefill", 0, 1024, 1024, H, KV,
+                                         Dh, n_layers),
+            "decode_attention": _k5_timed(dev, gen, f"{model} B=1", 1, H, KV, Dh, n_layers),
+        }
+    log(f"gqa: bf16 max_abs_err per kernel {json.dumps(errs)}")
+    return {"errors": errs, "timed": timed}
 
 
 # ---------------------------------------------------------------------------
@@ -2214,6 +2427,525 @@ def _discedge_launcher(counters, dev) -> dict:
     return {"turns": turns, "launches": launches, "wall_s": wall_s, "last_line": rows[-1]}
 
 
+# ---------------------------------------------------------------------------
+# Qwen2-0.5B and granite-moe-3b-a800m at full width: the paged and dense
+# routes at GQA groups 7 and 3, MoE serving, the batched server with K2
+# ---------------------------------------------------------------------------
+
+QWEN2_LOGIT_TOL = LOGIT_TOL  # qwen2-0.5b, kernel vs plain logits of a teacher-forced
+                             # turn: the paper model's bound (the same depth, 24 bf16
+                             # layers, d_head 64, tied embeddings of the same scale);
+                             # set before the first run on the card
+GRANITE_PINNED_REL = 0.3     # granite-moe in bf16, kernel vs plain logits of a
+                             # teacher-forced turn with the kernel path routed as the
+                             # plain path routed (so only the attention kernels
+                             # differ): max |diff| <= 0.3 x the plain logits' std (32
+                             # bf16 layers; the paper model's 24 stay near 0.1 x std).
+                             # Set before the first run on the card
+GRANITE_F32_REL = 1e-3       # granite-moe in f32 (TF32 off), its first 4 layers, free
+                             # routing: max |diff| <= 1e-3 x std, as SSM_F32_REL; a
+                             # routing flip needs two experts within ~1e-6 of each other
+
+
+def _decode_steps(n_tokens: int, max_new: int, sync_every: int = 8) -> int:
+    """Decode steps the engine runs for a turn that returned ``n_tokens``:
+    whole windows of ``sync_every`` before each stop scan, at most
+    ``max_new`` (the last window's steps past a stop are discarded)."""
+    return min(max_new, sync_every * -(-n_tokens // sync_every))
+
+
+def _serve_sessions(svc, name, contexts, n_turns, n_doc, max_new, rng, route):
+    """``n_turns`` turns of each session in ``contexts`` through ``svc``
+    (a TorchLLMService of ``route`` "paged" or "dense"), every turn after
+    the first a session hit prefilling only its prompt; returns (per-turn
+    records, the launches those turns must have made per layer, last turn
+    per session: (history, answer))."""
+    from repro_torch.tokenizer import assistant_header, encode_turn
+
+    tok, eng = svc.tokenizer, svc.engine
+    chunk = eng.append_chunk
+    per_layer = {"prefill": 0, "decode": 0}
+    turns, last = [], {}
+    for turn in range(n_turns):
+        for key, ctx in contexts.items():
+            ids = encode_turn(tok, "user", f"turn {turn + 1}: explain the attached sensor log")
+            doc = rng.integers(300, eng.cfg.vocab_size, size=n_doc).tolist()
+            p = ids[:-2] + doc + ids[-2:] + assistant_header(tok)
+            r = svc.completion(ctx, p, max_new, cache_key=key)
+            n_in = len(ctx) + len(p)
+            assert 0 < len(r.token_ids) <= max_new, r.token_ids
+            if turn > 0:
+                assert r.cache_hit and r.reused_tokens == len(ctx), (key, turn, r.reused_tokens)
+                assert r.prefill_tokens == len(p), (key, turn, r.prefill_tokens)
+            if route == "paged" or r.reused_tokens:
+                per_layer["prefill"] += -(-(n_in - r.reused_tokens) // chunk)
+            else:
+                per_layer["prefill"] += 1            # one bucketed full prefill
+            per_layer["decode"] += _decode_steps(len(r.token_ids), max_new)
+            turns.append({"session": key, "turn": turn + 1, "input_tokens": n_in,
+                          "reused": r.reused_tokens, "ttft_ms": r.ttft_ms,
+                          "decode_p50_ms": r.decode_p50_ms, "generated": len(r.token_ids)})
+            log(f"{name} {route}: {key} turn {turn + 1}: input {n_in} reused {r.reused_tokens} "
+                f"ttft_ms {r.ttft_ms:.3f} decode_p50_ms/token {r.decode_p50_ms:.3f} "
+                f"generated {len(r.token_ids)}")
+            contexts[key] = ctx + p + r.token_ids
+            last[key] = (contexts[key], r.token_ids)
+    return turns, per_layer, last
+
+
+def _route_launches(svc, name, route, contexts, n_turns, n_doc, rng, max_new=32) -> dict:
+    """Serve the sessions with every kernel counter at 0 just before, and
+    hold the counts just after to the route's exact launches: K3 per layer
+    per prefill chunk and K1 per layer per decode step (paged), K4 per
+    layer per full prefill or append chunk and K5 per layer per decode
+    step (dense), no other kernel."""
+    import numpy as np
+    import torch
+
+    counters = dict(_counters(), **_dense_counters())
+    for c in counters.values():
+        c.launches = 0
+    turns, per_layer, last = _serve_sessions(svc, name, contexts, n_turns, n_doc, max_new,
+                                             rng, route)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    L = svc.engine.cfg.n_layers
+    pre, dec = (("chunked_prefill", "paged_attention") if route == "paged"
+                else ("flash_attention", "decode_attention"))
+    want = {k: 0 for k in counters}
+    want[pre], want[dec] = L * per_layer["prefill"], L * per_layer["decode"]
+    log(f"{name} {route}: kernel launches {launches} (expected {want})")
+    assert launches == want, (name, route, launches, want)
+    return {"launches": launches, "last": last,
+            "ttft_ms_p50": float(np.percentile([t["ttft_ms"] for t in turns], 50)),
+            "decode_ms_per_token_p50": float(np.percentile([t["decode_p50_ms"] for t in turns],
+                                                           50)),
+            "inputs": [t["input_tokens"] for t in turns]}
+
+
+def phase_qwen2(dev) -> dict:
+    """Full-width qwen2-0.5b (random bf16 weights from seed 0; GQA 14/2:
+    G = 7): 2 sessions x 2 turns on the paged route (K3 + K1) and on the
+    dense route (K4 + K5), each with exact launch counts; then session s1's
+    last turn teacher-forced through the kernel and plain paths (paged),
+    max |logit diff| <= QWEN2_LOGIT_TOL. The model is freed after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import QWEN2_0_5B
+    from repro_torch.models import init_params
+    from repro_torch.serving import TorchLLMService
+
+    cfg = QWEN2_0_5B.replace(attn_impl="cuda")
+    name = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    mk = lambda **kw: TorchLLMService.create(name, cfg, max_len=2048, device=dev,  # noqa: E731
+                                             params=params, **kw)
+    services = {"paged": mk(page_size=PS, kv_pages=512), "dense": mk()}
+    rng = np.random.default_rng(7)
+    for svc in services.values():          # warm-up, not counted
+        svc.completion(rng.integers(300, 5000, size=64).tolist(), [300, 301], 4,
+                       cache_key="warmup")
+    torch.cuda.synchronize()
+    log(f"{name}: weights and services {time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, bf16 weights "
+        f"{sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} GB)")
+    out = {}
+    for route, svc in services.items():
+        contexts = {f"s{i}": rng.integers(300, cfg.vocab_size, size=300 + 400 * i).tolist()
+                    for i in range(2)}
+        out[route] = _route_launches(svc, name, route, contexts, 2, 200, rng)
+    hist, forced = out["paged"].pop("last")["s1"]
+    out["dense"].pop("last")
+    ids = hist[: len(hist) - len(forced)]
+    kern = teacher_forced_logits(cfg, params, ids, forced, dev)
+    plain = teacher_forced_logits(cfg.replace(attn_impl="reference"), params, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert kern.shape == plain.shape == (len(forced) + 1, cfg.vocab_size)
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    diff = (kern - plain).abs().max().item()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"{name} equivalence: teacher-forced turn of {len(ids)} + {len(forced)} tokens: max "
+        f"|logit diff| kernel vs plain {diff:.4e} (bound {QWEN2_LOGIT_TOL}; logit std "
+        f"{plain.std().item():.4f}), argmax agreement {agree:.3f}")
+    assert diff <= QWEN2_LOGIT_TOL, f"{name}: logits differ by {diff} > {QWEN2_LOGIT_TOL}"
+    out.update(max_logit_diff=diff, logit_std=plain.std().item(), argmax_agreement=agree)
+    log(f"{name}: summary {json.dumps(out)}")
+    del services, params, kern, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+class _RouteLog:
+    """Within the block, every ``moe._route`` call records its expert
+    choices (``mode="record"``), or takes the choices recorded before, call
+    for call, with its own probabilities renormalised over them
+    (``mode="replay"``): a path routed as another path routed."""
+
+    def __init__(self, mode, calls=None):
+        self.mode, self.calls = mode, [] if calls is None else calls
+        self.i = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.real = real = moe._route
+
+        def route(p, xf, cfg):
+            top_idx, top_w, aux = real(p, xf, cfg)
+            if self.mode == "record":
+                self.calls.append(top_idx.clone())
+            else:
+                top_idx = self.calls[self.i]
+                probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+                vals = probs.gather(1, top_idx)
+                top_w = vals / vals.sum(dim=-1, keepdim=True)
+            self.i += 1
+            return top_idx, top_w, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self.real
+
+
+def _routing_flips(a, b) -> tuple:
+    """(rows whose set of chosen experts differs, rows compared) between two
+    recorded runs of the same calls."""
+    import torch
+
+    assert len(a) == len(b), (len(a), len(b))
+    flips = sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values).any(-1).sum())
+                for x, y in zip(a, b))
+    return flips, sum(x.shape[0] for x in a)
+
+
+def phase_granite(dev) -> dict:
+    """Full-width granite-moe-3b-a800m (32 layers, 40 experts top-8, GQA
+    24/8: G = 3; random bf16 weights from seed 0, nothing cut): 3 sessions
+    x 2 turns on the paged route with exact K3/K1 launch counts; a
+    ``BatchedLLMService(paged=True)`` wave of 8 tenants sharing a
+    512-token system prompt (K1, K2 and K3 launched, the prompt shared);
+    session s1's last turn teacher-forced through the kernel and plain
+    paths in bf16, free (routing flips counted, reported) and routed as
+    the plain path routed (bounded by GRANITE_PINNED_REL x std); the same
+    in f32 with TF32 off over the first 4 layers, free routing, bounded by
+    GRANITE_F32_REL x std; a profiled decode step. The model is freed
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedLLMService, TorchLLMService
+
+    cfg = GRANITE_MOE_3B_A800M.replace(attn_impl="cuda")
+    name = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    svc = TorchLLMService.create(name, cfg, max_len=2048, page_size=PS, kv_pages=512,
+                                 device=dev, params=params)
+    rng = np.random.default_rng(8)
+    svc.completion(rng.integers(300, 5000, size=64).tolist(), [300, 301], 4,
+                   cache_key="warmup")
+    torch.cuda.synchronize()
+    log(f"{name}: weights and service {time.perf_counter() - t0:.2f} s ({cfg.n_layers} "
+        f"layers, {cfg.n_experts} experts top-{cfg.top_k}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"x {cfg.d_head}, bf16 weights {sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} "
+        f"GB)")
+    contexts = {f"s{i}": rng.integers(300, cfg.vocab_size, size=256 * (i + 1)).tolist()
+                for i in range(3)}
+    out = {"paged": _route_launches(svc, name, "paged", contexts, 2, 100, rng)}
+    hist, forced = out["paged"].pop("last")["s1"]
+    ids = hist[: len(hist) - len(forced)]
+
+    # teacher-forced, bf16: free routing (flips counted), then the kernel
+    # path routed as the plain path routed
+    plain_cfg = cfg.replace(attn_impl="reference")
+    with _RouteLog("record") as rp:
+        plain = teacher_forced_logits(plain_cfg, params, ids, forced, dev)
+    with _RouteLog("record") as rk:
+        free = teacher_forced_logits(cfg, params, ids, forced, dev)
+    with _RouteLog("replay", rp.calls):
+        pinned = teacher_forced_logits(cfg, params, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (plain, free, pinned))
+    flips, rows = _routing_flips(rp.calls, rk.calls)
+    std = plain.std().item()
+    d_free = (free - plain).abs().max().item()
+    d_pin = (pinned - plain).abs().max().item()
+    a_free = (free.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"{name} equivalence (bf16): teacher-forced turn of {len(ids)} + {len(forced)} tokens; "
+        f"logit std {std:.4f}; free routing: {flips} routing flips in {rows} (row, layer) "
+        f"choices, max |logit diff| {d_free:.4e} ({d_free / std:.3f} x std), argmax agreement "
+        f"{a_free:.3f} (reported); routed as the plain path: max |logit diff| {d_pin:.4e} = "
+        f"{d_pin / std:.3f} x std (bound {GRANITE_PINNED_REL} x std)")
+    assert d_pin <= GRANITE_PINNED_REL * std, (name, d_pin, std)
+    out["bf16"] = {"logit_std": std, "free_max_logit_diff": d_free, "routing_flips": flips,
+                   "routing_rows": rows, "free_argmax_agreement": a_free,
+                   "pinned_max_logit_diff": d_pin, "pinned_bound": GRANITE_PINNED_REL * std}
+
+    # a profiled decode step (8 steps from s1's last context)
+    alloc, _, table, kv_pos, _ = _prefilled(cfg, params, ids, len(forced), dev)
+    steps = forced[:8]
+    out["profile"] = profile_work(
+        f"{name}_decode_step",
+        lambda: _decode_forced(cfg, params, alloc, table, kv_pos, len(ids), steps, dev),
+        len(steps))
+    assert_served_by(out["profile"], "paged_attention_split", cfg.n_layers)
+    del alloc, table, kv_pos
+
+    # the batched server: 8 tenants sharing a 512-token system prompt
+    bsvc = BatchedLLMService.create(name, cfg, n_slots=8, max_len=2048, paged=True,
+                                    page_size=PS, kv_pages=1024, prefill_chunk_tokens=256,
+                                    device=dev, params=params)
+    server = bsvc.server
+    server.submit(rng.integers(300, 5000, size=40).tolist(), max_new=4)   # warm-up
+    server.run_to_completion()
+    server.finished.clear()
+    system = rng.integers(300, cfg.vocab_size, size=512).tolist()
+    questions = [rng.integers(300, cfg.vocab_size, size=int(rng.integers(24, 73))).tolist()
+                 for _ in range(8)]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    hits0 = server.session_pool.shared_hits
+    rids = [server.submit(system + q, max_new=16, cache_key=f"tenant{i}")
+            for i, q in enumerate(questions)]
+    t_wave = time.perf_counter()
+    steps_b = _drive(server)
+    wave_s = time.perf_counter() - t_wave
+    fin = {f.request_id: f for f in server.finished}
+    server.finished.clear()
+    launches = {k: c.launches for k, c in counters.items()}
+    gen_tokens = sum(len(fin[r].token_ids) for r in rids)
+    shared = server.session_pool.shared_hits - hits0
+    log(f"{name} batched: wave of 8 tenants (512-token shared prompt + 24-72 tokens, 16 new): "
+        f"{gen_tokens} tokens in {wave_s:.3f} s over {len(steps_b)} steps, shared hits "
+        f"{shared}; kernel launches {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+    assert shared >= 7, shared
+    pure8 = [ms for ready, ms, pure in steps_b if pure and ready == 8]
+    out["batched"] = {"launches": launches, "shared_hits": shared,
+                      "wave_tokens_per_s": gen_tokens / wave_s,
+                      "decode_ms_per_step_b8_p50": float(np.percentile(pure8, 50))
+                      if pure8 else "not measured"}
+    del bsvc, server, svc, params, plain, free, pinned
+    torch.cuda.empty_cache()
+
+    # f32, TF32 off, the first 4 layers: free routing
+    f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(f32, seed=0, device=dev)
+    seq = np.random.default_rng(1).integers(300, cfg.vocab_size, size=272).tolist()
+    ids32, forced32 = seq[:256], seq[256:]
+    with _RouteLog("record") as rk:
+        kern = teacher_forced_logits(f32, p32, ids32, forced32, dev)
+    with _RouteLog("record") as rp:
+        plain = teacher_forced_logits(f32.replace(attn_impl="reference"), p32, ids32, forced32,
+                                      dev)
+    torch.cuda.synchronize()
+    flips, rows = _routing_flips(rp.calls, rk.calls)
+    std = plain.std().item()
+    diff = (kern - plain).abs().max().item()
+    log(f"{name} f32 (4 of {cfg.n_layers} layers, TF32 off): teacher-forced 256 + 16 tokens: "
+        f"{flips} routing flips in {rows}; max |logit diff| kernel vs plain {diff:.4e} = "
+        f"{diff / std:.3e} x logit std {std:.4f} (bound {GRANITE_F32_REL} x std)")
+    assert diff <= GRANITE_F32_REL * std, (name, diff, std)
+    out["f32"] = {"layers": 4, "max_logit_diff": diff, "logit_std": std,
+                  "bound": GRANITE_F32_REL * std, "routing_flips": flips, "routing_rows": rows}
+    log(f"{name}: summary {json.dumps(out)}")
+    del p32, kern, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fleet layer: residency routing, admission control and adaptive
+# mounting over four nodes of the full-width paper model
+# ---------------------------------------------------------------------------
+
+FLEET_NODES = ("edge-0", "edge-1", "edge-2", "edge-3")
+# 12 clients opening with one shared prompt family, arriving at ~8 sessions/s
+# (so a node gets hi = 3 turns in flight and flips to its batched mount), up
+# to 3 turns each with ~0.3 s of think time (so the tail's concurrency sinks
+# and nodes flip back)
+FLEET_SPEC = dict(n_clients=12, seed=3, arrival_rate_per_s=8.0, max_turns=3,
+                  think_ms_mean=300.0, n_families=1)
+FLEET_ADMISSION = 6                     # a node sheds its 7th turn in flight
+FLEET_CHURN = ("edge-1", 4000.0, 9000.0)   # crash at 4 s of the scenario, restart at 9 s
+FLEET_MIN_EQUAL = 3                     # batched-mount turns that must equal a fresh
+                                        # single-stream service's tokens
+FLEET_MAX_REPLAYS = 12                  # batched-mount turns replayed at most to find them
+
+
+def phase_fleet(dev) -> dict:
+    """The port's fleet layer on the card: the paper model at full width
+    (one params dict) on a 4-node ``EdgeCluster.build(router="residency",
+    admission_limit=FLEET_ADMISSION)``, each node an ``AdaptiveLLMService``
+    over its own paged ``TorchLLMService`` and ``BatchedLLMService(paged=
+    True)``, driven by ``run_fleet`` on ``generate_workload(FLEET_SPEC)``
+    with one crash and restart (``FLEET_CHURN``). Every kernel launch is
+    attributed to the mount (or the warm-start prime) that made it.
+    Requires: no hung ticket, a flip up and a flip down, turns served on
+    both mounts, K1, K2 and K3 launched, and at least FLEET_MIN_EQUAL
+    batched-mount turns whose tokens equal a fresh single-stream kernel
+    service's on the same context — a turn that differs must differ at a
+    bf16 near-tie (the logit gap at its first differing step under
+    LOGIT_TOL)."""
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.edge import EdgeCluster
+    from repro_torch.fleet import (
+        AdaptiveLLMService,
+        ChurnEvent,
+        WorkloadSpec,
+        generate_workload,
+        run_fleet,
+    )
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedLLMService, TorchLLMService
+    from repro_torch.store import Link
+
+    cfg = PAPER_QWEN15_0_5B.replace(attn_impl="cuda")
+    model = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    TorchLLMService.create(model, cfg, max_len=2048, page_size=PS, kv_pages=64, device=dev,
+                           params=params).completion(list(range(300, 364)), [300], 4,
+                                                     cache_key="warmup")
+    torch.cuda.synchronize()
+    counters = dict(_counters(), **_dense_counters())
+    zero = lambda: dict.fromkeys(counters, 0)  # noqa: E731
+    mounts = {n: {"single": zero(), "batched": zero(), "prime": zero()} for n in FLEET_NODES}
+    served = {n: {"single": 0, "batched": 0} for n in FLEET_NODES}
+    flips = {n: [] for n in FLEET_NODES}
+    batched_turns = []
+
+    def attributed(nid, bucket, fn):
+        def run(*a, **k):
+            before = {name: c.launches for name, c in counters.items()}
+            out = fn(*a, **k)
+            for name, c in counters.items():
+                mounts[nid][bucket][name] += c.launches - before[name]
+            return out
+        return run
+
+    def factory(nid):
+        single = TorchLLMService.create(model, cfg, max_len=2048, page_size=PS, kv_pages=512,
+                                        session_cache_capacity=16, device=dev, params=params)
+        batched = BatchedLLMService.create(model, cfg, n_slots=8, max_len=2048, paged=True,
+                                           page_size=PS, kv_pages=768,
+                                           session_cache_capacity=16,
+                                           prefill_chunk_tokens=256, device=dev, params=params)
+        svc = AdaptiveLLMService(single=single, batched=batched)
+        real_single, real_batched, real_flip = single.submit, batched.submit, svc._maybe_flip
+
+        def single_submit(*a, **k):
+            served[nid]["single"] += 1
+            return real_single(*a, **k)
+
+        def batched_submit(ctx, prompt, max_new, cache_key=None, *, net, on_done):
+            served[nid]["batched"] += 1
+            rec = {"context": list(ctx), "prompt": list(prompt), "max_new": max_new}
+            batched_turns.append(rec)
+
+            def done(result):
+                rec["tokens"] = list(result.token_ids)
+                on_done(result)
+
+            return real_batched(ctx, prompt, max_new, cache_key, net=net, on_done=done)
+
+        def maybe_flip():
+            before = svc.mode
+            real_flip()
+            if svc.mode != before:
+                flips[nid].append(svc.mode)
+
+        single.submit = attributed(nid, "single", single_submit)
+        batched.submit = batched_submit
+        batched._pump = attributed(nid, "batched", batched._pump)
+        single.prime = attributed(nid, "prime", single.prime)
+        batched.prime = attributed(nid, "prime", batched.prime)
+        svc._maybe_flip = maybe_flip
+        return svc
+
+    cluster = EdgeCluster.build(
+        list(FLEET_NODES), factory,
+        inter_node_link=Link(latency_ms=2.0, bandwidth_mbps=100.0),
+        client_link=Link(latency_ms=5.0, bandwidth_mbps=20.0),
+        router="residency", admission_limit=FLEET_ADMISSION)
+    log(f"fleet: weights and {len(FLEET_NODES)} nodes x 2 mounts built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    plans = generate_workload(WorkloadSpec(**FLEET_SPEC))
+    for c in counters.values():
+        c.launches = 0
+    t_run = time.perf_counter()
+    res = run_fleet(cluster, plans, policy_name="residency", churn=[ChurnEvent(*FLEET_CHURN)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_run
+    summary = res.summary()
+    total = {name: c.launches for name, c in counters.items()}
+    ups = sum(f.count("batched") for f in flips.values())
+    downs = sum(f.count("single") for f in flips.values())
+    log(f"fleet: {summary['n_sessions']} sessions, {summary['n_turns']} turns in {wall_s:.2f} s "
+        f"of wall: {json.dumps(summary)}")
+    log(f"fleet: flips per node {json.dumps(flips)}; turns per mount {json.dumps(served)}; "
+        f"sheds {summary['sheds']} requeues {summary['requeues']} failovers "
+        f"{summary['failovers']}; launches per mount {json.dumps(mounts)}")
+    assert res.hung_tickets == 0, summary
+    assert ups >= 1 and downs >= 1, flips
+    assert sum(s["single"] for s in served.values()) > 0, served
+    assert sum(s["batched"] for s in served.values()) > 0, served
+    assert all(total[k] > 0 for k in ("chunked_prefill", "paged_attention", "shared_prefix")), \
+        total
+    assert total["flash_attention"] == total["decode_attention"] == 0, total
+    assert total == {k: sum(m[b][k] for m in mounts.values() for b in m) for k in total}, \
+        (total, mounts)
+    assert cluster.node(FLEET_CHURN[0]).crashes == 1
+
+    # batched-mount turns, in order, against a fresh single-stream kernel
+    # service until FLEET_MIN_EQUAL are token-identical; a turn that differs
+    # must differ at a near-tie: at its first differing step the two tokens'
+    # logits (the kernel path teacher-forced with the batched tokens) lie
+    # within LOGIT_TOL of each other
+    fresh = TorchLLMService.create(model, cfg, max_len=2048, page_size=PS, kv_pages=512,
+                                   device=dev, params=params)
+    done = [r for r in batched_turns if "tokens" in r]
+    checked = []
+    for i, rec in enumerate(done[:FLEET_MAX_REPLAYS]):
+        r = fresh.completion(rec["context"], rec["prompt"], rec["max_new"],
+                             cache_key=f"check{i}")
+        entry = {"equal": r.token_ids == rec["tokens"], "tokens": len(rec["tokens"])}
+        if not entry["equal"]:
+            j = next((k for k, (a, b) in enumerate(zip(r.token_ids, rec["tokens"])) if a != b),
+                     None)
+            assert j is not None, ("lengths differ with no differing token", r.token_ids,
+                                   rec["tokens"])
+            ids = rec["context"] + rec["prompt"]
+            lg = teacher_forced_logits(cfg, params, ids, rec["tokens"][:j], dev)[j]
+            gap = (lg[r.token_ids[j]] - lg[rec["tokens"][j]]).abs().item()
+            entry.update(first_diff=j, logit_gap=gap)
+            assert gap < LOGIT_TOL, ("fleet batched vs single", entry)
+        checked.append(entry)
+        if sum(e["equal"] for e in checked) >= FLEET_MIN_EQUAL:
+            break
+    n_equal = sum(e["equal"] for e in checked)
+    differ = [e for e in checked if not e["equal"]]
+    log(f"fleet: {len(done)} batched-mount turns; {len(checked)} replayed on a fresh "
+        f"single-stream service: {n_equal} token-identical, the rest {json.dumps(differ)}")
+    assert n_equal >= FLEET_MIN_EQUAL, checked
+    out = {"summary": summary, "wall_s": wall_s, "flips": flips, "flips_up": ups,
+           "flips_down": downs, "turns_per_mount": served, "launches_per_mount": mounts,
+           "launches": total, "batched_turns": len(done), "batched_vs_single": checked,
+           "spec": FLEET_SPEC, "admission_limit": FLEET_ADMISSION, "churn": FLEET_CHURN}
+    del cluster, fresh, params
+    torch.cuda.empty_cache()
+    return out
+
+
 SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
 
 
@@ -2304,6 +3036,7 @@ def main() -> int:
     k3 = phase_k3(dev, n_layers)
     k4 = phase_k4(dev, n_layers)
     k5 = phase_k5(dev, n_layers)
+    gqa = phase_gqa(dev, n_layers)
     svc, last_turn, launches, summary = phase_main(dev)
     diff = phase_equivalence(svc, last_turn, dev)
     phase_profile(svc, last_turn, dev)
@@ -2340,6 +3073,12 @@ def main() -> int:
     ssm_f32 = {"mamba2": phase_ssm_f32(dev, MAMBA2_1_3B, MAMBA2_1_3B.n_layers),
                "zamba2": phase_ssm_f32(dev, ZAMBA2_7B, 25)}
     discedge = phase_discedge(dev)
+    qwen2 = phase_qwen2(dev)
+    granite = phase_granite(dev)
+    fleet = phase_fleet(dev)
+    # the GQA edges' bf16 errors count in each kernel's max_abs_err
+    for kk in (k1, k2, k3, k4, k5):
+        kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2354,6 +3093,10 @@ def main() -> int:
     print(json.dumps({"ssm_path": ssm, "zamba_path": zamba, "ssm_f32": ssm_f32, "k6_extra": {
         k: v for k, v in k6.items() if k not in keys}}))
     print(json.dumps({"discedge_path": discedge}))
+    print(json.dumps({"gqa_edges": gqa}))
+    print(json.dumps({"qwen2_path": qwen2}))
+    print(json.dumps({"granite_path": granite}))
+    print(json.dumps({"fleet_path": fleet}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -156,10 +156,9 @@ class LLMClient:
 
         Node choice (docs/architecture.md, "Fleet layer"): an explicit
         ``node_id`` is honored for the first attempt (mobility experiments
-        steer placement); ``node_id=None`` asks the cluster's mounted fleet
-        router (a ``router`` attribute with ``route(model, cache_key=,
-        exclude=)``; the port has no fleet layer yet, ROADMAP Queue 1) to
-        place the turn. Retry attempts — failover after node-down/timeout,
+        steer placement); ``node_id=None`` asks the cluster's mounted
+        :class:`~repro_torch.fleet.router.FleetRouter` to place the turn.
+        Retry attempts — failover after node-down/timeout,
         requeue after an admission shed — consult the router too
         (excluding nodes already tried), falling back to salted ring order
         without one."""
@@ -167,8 +166,7 @@ class LLMClient:
         router = getattr(self.cluster, "router", None)
         if node_id is None and router is None:
             raise ValueError("submit(node_id=None) requires a mounted fleet "
-                             "router, which repro_torch has not ported yet "
-                             "(ROADMAP Queue 1)")
+                             "router — EdgeCluster.build(router=...)")
         ticket = Ticket(submitted_at_ms=net.clock.now_ms + max(0.0, delay_ms))
         # Attempt generation: each attempt (and each abandonment) bumps it,
         # so events belonging to a dead attempt — late deliveries, stale

@@ -1,7 +1,5 @@
 """Edge cluster wiring: nodes + network + distributed store + keygroups —
-the port's copy of ``repro.edge.cluster``. The fleet layer is not ported
-yet: ``build``'s ``router=``/``admission_limit=`` options raise, and the
-``router`` seam stays empty.
+the port's copy of ``repro.edge.cluster``.
 
 Builds the deployment the paper evaluates (§4.1): a set of
 :class:`~repro_torch.edge.node.EdgeNode`s over a simulated network, one FReD-style
@@ -36,12 +34,12 @@ class EdgeCluster:
     network: Network
     store: DistributedKVStore
     nodes: Dict[str, EdgeNode] = field(default_factory=dict)
+    # Fleet layer (docs/architecture.md): the mounted FleetRouter, or None.
+    # LLMClient consults it for placement; mount via build(router=...) or
+    # repro_torch.fleet.mount_router on a built cluster.
+    router: Optional[object] = None
     # KV-page shipping fabric (docs/architecture.md, "KV page shipping"),
     # mounted by build(kv_ship=True); None = replication always recomputes.
-    # Fleet layer (docs/architecture.md): the mounted fleet router, or None.
-    # LLMClient consults it for placement. The port has not ported the
-    # fleet layer yet (ROADMAP Queue 1), so build() never mounts one.
-    router: Optional[object] = None
     kv_ship: Optional[KVShipper] = None
 
     @classmethod
@@ -68,10 +66,12 @@ class EdgeCluster:
         hook on each node (see EdgeNode.create).
 
         Fleet options (docs/architecture.md, "Fleet layer"): ``router``
-        and ``admission_limit`` mount ``repro.fleet``'s router and
-        admission control in JAX. The port has not ported the fleet layer
-        yet (ROADMAP Queue 1), so either option raises
-        ``NotImplementedError`` rather than being ignored.
+        mounts a :class:`~repro_torch.fleet.router.FleetRouter` — pass a
+        policy name (``"random"``/``"round_robin"``/``"residency"``) or a
+        :class:`~repro_torch.fleet.router.RoutingPolicy` instance;
+        ``admission_limit`` gives every node an
+        :class:`~repro_torch.fleet.admission.AdmissionControl` with that
+        concurrency target.
 
         ``kv_ship=True`` mounts a :class:`~repro_torch.store.kv_ship.KVShipper`
         and registers every node whose service exposes the shipping hooks
@@ -80,12 +80,6 @@ class EdgeCluster:
         recompute via the measured cost model (``kv_ship_force`` pins one
         path for benches). Off by default — the recompute-only
         behaviour."""
-        if router is not None or admission_limit is not None:
-            raise NotImplementedError(
-                "EdgeCluster.build(router=..., admission_limit=...) needs the "
-                "fleet layer (admission, router, workload), which repro_torch "
-                "has not ported yet: ROADMAP Queue 1 (fleet)"
-            )
         net = Network(default_link=inter_node_link or Link(latency_ms=1.0, bandwidth_mbps=1000.0))
         if client_link is not None:
             for nid in node_ids:
@@ -150,6 +144,15 @@ class EdgeCluster:
                     coverage=svc.resident_ship_pages,
                 )
             cluster.kv_ship = shipper
+        if admission_limit is not None:
+            from ..fleet.admission import AdmissionControl  # lazy: no cycle
+            for node in cluster.nodes.values():
+                node.admission = AdmissionControl(limit=admission_limit)
+        if router is not None:
+            from ..fleet.router import make_policy, mount_router
+            policy = make_policy(router, shed_limit=admission_limit) \
+                if isinstance(router, str) else router
+            mount_router(cluster, policy)
         return cluster
 
     def node(self, node_id: str) -> EdgeNode:

@@ -17,13 +17,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from time import perf_counter
-from typing import Callable, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Optional
 
 from ..core.consistency import RetryPolicy
 from ..core.manager import ContextManager, LLMServiceProtocol
 from ..core.protocol import OVERLOADED, Request, Response, Ticket, Timing
 from ..store.distributed import DistributedKVStore
 from ..store.kvstore import VersionedValue
+
+if TYPE_CHECKING:  # fleet imports edge; the reverse stays type-only
+    from ..fleet.admission import AdmissionControl
 
 # EWMA smoothing for the node's observed generation throughput — one
 # decade of turns dominates the estimate (docs/architecture.md, "Fleet
@@ -71,10 +74,8 @@ class EdgeNode:
     crashes: int = 0
     # Fleet layer (docs/architecture.md): optional per-node admission
     # controller (None: admit everything — the pre-fleet behaviour) and the
-    # smoothed generation throughput published in load reports. The port
-    # has not ported the fleet layer yet (ROADMAP Queue 1), so nothing in
-    # it mounts a controller.
-    admission: Optional[object] = None
+    # smoothed generation throughput published in load reports.
+    admission: Optional["AdmissionControl"] = None
     ewma_tps: float = 0.0
     # KV-page shipping (docs/architecture.md, "KV page shipping"): the
     # cluster's KVShipper when this node participates (None: every

@@ -3,8 +3,10 @@ prefill that seeds full caches and SSM state (``prefill``; dense, mamba and
 zamba groups), the chunk append into existing full caches
 (``prefill_append``, session-level KV reuse on the dense route), and the
 paged route's chunked prefill straight into KV pages
-(``prefill_chunk_paged``); the last two for dense groups only. Caches and
-pools are written in place."""
+(``prefill_chunk_paged``); the last two for dense and moe groups only.
+Caches and pools are written in place. A moe layer's experts see every row
+of the call — bucket padding included — as in JAX, so the same rows fill
+the experts' capacity."""
 
 from __future__ import annotations
 
@@ -16,17 +18,18 @@ from .attention import attention_append, attention_chunk_paged, attention_forwar
 from .cache import Cache, append_kv_pos, gather_pages_stacked, prefill_kv_pos, trim_kv_pos
 from .config import ModelConfig
 from .layers import Params, dtype_of, embed_tokens, mlp_forward, rms_norm, unembed
+from .moe import moe_forward
 from .transformer import _mamba_block_full, layer_groups
 
 
 def supports_append(cfg: ModelConfig) -> bool:
     """Incremental and chunked paged prefill need full-cache (slot ==
-    position) dense groups: SSM and hybrid state cannot be extended in
-    place the same way (as in JAX)."""
+    position) dense or moe groups: SSM and hybrid state cannot be extended
+    in place the same way (as in JAX)."""
     if cfg.attn_variant != "full":
         return False
     try:
-        return all(spec.kind == "dense" for spec in layer_groups(cfg))
+        return all(spec.kind in ("dense", "moe") for spec in layer_groups(cfg))
     except NotImplementedError:
         return False
 
@@ -42,6 +45,19 @@ def _dense_block_prefill(
     x = x + h
     x = x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
     return x, k, v
+
+
+def _moe_block_prefill(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    window: int, seq_valid: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    h, k, v = attention_forward(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
+        window=window, seq_valid=seq_valid, return_kv=True,
+    )
+    x = x + h
+    m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m, k, v
 
 
 def _alloc_kv(n_layers: int, b: int, max_len: int, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,9 +128,10 @@ def prefill(
             })
             continue
         w = cfg.window_for_layer(0)
+        block = _dense_block_prefill if spec.kind == "dense" else _moe_block_prefill
         ck = cv = None
         for i, bp in enumerate(gp):
-            x, k, v = _dense_block_prefill(bp, x, positions, cfg, w, seq_valid)
+            x, k, v = block(bp, x, positions, cfg, w, seq_valid)
             if ck is None:
                 ck, cv = _alloc_kv(len(gp), b, max_len, k)
             ck[i, :, :s] = k
@@ -143,6 +160,19 @@ def _dense_block_append(
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
 
 
+def _moe_block_append(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, p0: int, ck: torch.Tensor,
+    cv: torch.Tensor, kv_pos: torch.Tensor, cfg: ModelConfig, window: int,
+) -> torch.Tensor:
+    h = attention_append(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, p0,
+        ck, cv, kv_pos, cfg, window=window,
+    )
+    x = x + h
+    m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m
+
+
 def prefill_append(
     params: Dict,
     cfg: ModelConfig,
@@ -162,7 +192,7 @@ def prefill_append(
     entry) passes a copy. With the kernels, attention is K4."""
     if not supports_append(cfg):
         raise NotImplementedError(
-            f"prefill_append requires full-cache dense groups ({cfg.name})"
+            f"prefill_append requires full-cache dense/moe groups ({cfg.name})"
         )
     b, s = tokens.shape
     dev = tokens.device
@@ -176,8 +206,9 @@ def prefill_append(
     for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
         append_kv_pos(cache["kv_pos"], p0, valid)
         w = cfg.window_for_layer(0)
+        block = _dense_block_append if spec.kind == "dense" else _moe_block_append
         for i, bp in enumerate(gp):
-            x = _dense_block_append(
+            x = block(
                 bp, x, q_pos, p0, cache["k"][i], cache["v"][i], cache["kv_pos"], cfg, w,
             )
     n_new = (
@@ -187,6 +218,35 @@ def prefill_append(
     last = x[torch.arange(b, device=dev), n_new.long() - 1][:, None, :]
     logits = unembed(params["embed"], last, cfg)
     return logits[:, 0], caches, p0 + n_new
+
+
+def _dense_block_chunk_paged(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, valid: torch.Tensor,
+    pk: torch.Tensor, pv: torch.Tensor, page_table: torch.Tensor, p0: torch.Tensor,
+    true_len: torch.Tensor, cfg: ModelConfig, n_skip: int,
+    lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    h = attention_chunk_paged(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, valid,
+        pk, pv, page_table, p0, true_len, cfg, n_skip=n_skip, lin_k=lin_k, lin_v=lin_v,
+    )
+    x = x + h
+    return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def _moe_block_chunk_paged(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, valid: torch.Tensor,
+    pk: torch.Tensor, pv: torch.Tensor, page_table: torch.Tensor, p0: torch.Tensor,
+    true_len: torch.Tensor, cfg: ModelConfig, n_skip: int,
+    lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    h = attention_chunk_paged(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, valid,
+        pk, pv, page_table, p0, true_len, cfg, n_skip=n_skip, lin_k=lin_k, lin_v=lin_v,
+    )
+    x = x + h
+    m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m
 
 
 def prefill_chunk_paged(
@@ -210,7 +270,7 @@ def prefill_chunk_paged(
     pages once, before any layer writes."""
     if not supports_append(cfg):
         raise NotImplementedError(
-            f"prefill_chunk_paged requires full-cache dense groups ({cfg.name})"
+            f"prefill_chunk_paged requires full-cache dense/moe groups ({cfg.name})"
         )
     b, s = tokens.shape
     idx = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -221,18 +281,15 @@ def prefill_chunk_paged(
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     use_kernel = cfg.attn_impl != "reference"
     for spec, gp, pool in zip(layer_groups(cfg), params["groups"], pools):
+        block = _dense_block_chunk_paged if spec.kind == "dense" else _moe_block_chunk_paged
         if not use_kernel:
             lin_k, lin_v = gather_pages_stacked(pool["k"], pool["v"], page_table)
         for i, bp in enumerate(gp):
-            h = attention_chunk_paged(
-                bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), q_pos, valid,
-                pool["k"][i], pool["v"][i], page_table, p0, true_len, cfg,
-                n_skip=n_skip,
-                lin_k=None if use_kernel else lin_k[i],
-                lin_v=None if use_kernel else lin_v[i],
+            x = block(
+                bp, x, q_pos, valid, pool["k"][i], pool["v"][i], page_table, p0, true_len,
+                cfg, n_skip,
+                None if use_kernel else lin_k[i], None if use_kernel else lin_v[i],
             )
-            x = x + h
-            x = x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
     n = torch.clamp(true_len, min=1).long()
     last = x[torch.arange(b, device=x.device), n - 1][:, None, :]
     return unembed(params["embed"], last, cfg)[:, 0]

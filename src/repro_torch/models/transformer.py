@@ -1,12 +1,12 @@
 """Decoder assembly — the PyTorch counterpart of
-``repro.models.transformer`` for the ``"dense"``, ``"mamba"`` and
-``"zamba"`` layer groups: the full-sequence forward (inference), the dense
-route's decode step against full caches and SSM state, and the paged
-route's decode step against a page pool (dense groups only).
+``repro.models.transformer`` for the ``"dense"``, ``"moe"``, ``"mamba"``
+and ``"zamba"`` layer groups: the full-sequence forward (inference), the
+dense route's decode step against full caches and SSM state, and the paged
+route's decode step against a page pool (dense and moe groups).
 
 Parameters are ``{"embed": {...}, "groups": [group, ...]}`` plus, for a
 zamba hybrid, ``"shared_attn"`` (one dense block's dict, shared by every
-zamba group). A dense or mamba group is a list of per-layer dicts; a zamba
+zamba group). A dense, moe or mamba group is a list of per-layer dicts; a zamba
 group is a list of ``n_groups`` lists of ``period`` mamba-layer dicts (the
 JAX package stacks each group on leading axes and scans it; Python loops
 over layers replace ``scan_or_unroll`` here). Caches, pools and ``kv_pos``
@@ -50,12 +50,13 @@ from .layers import (
     rms_norm,
     unembed,
 )
+from .moe import init_moe, moe_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 
 @dataclass(frozen=True)
 class GroupSpec:
-    kind: str          # dense | mamba | zamba (the kinds this port serves so far)
+    kind: str          # dense | moe | mamba | zamba (JAX's gemma_pair is not ported yet)
     n_blocks: int      # layers (zamba: shared-attention invocations)
     period: int = 0    # zamba: mamba layers per shared-attention invocation
 
@@ -63,9 +64,9 @@ class GroupSpec:
 def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
     """The layer groups of ``cfg``, as in JAX: ``"zamba"`` groups (then any
     remainder of mamba layers) for the zamba hybrid, one ``"mamba"`` group
-    for an SSM, one ``"dense"`` group for the uniform dense decoders. The
-    JAX package's other kinds (gemma_pair, moe) are not ported yet and
-    raise."""
+    for an SSM, one ``"moe"`` group for a decoder with experts, one
+    ``"dense"`` group for the other uniform decoders. JAX's gemma_pair
+    groups (local/global layer pairs) are not ported yet and raise."""
     if cfg.layer_pattern == "zamba_hybrid":
         period = cfg.shared_attn_period
         n_groups, rem = divmod(cfg.n_layers, period)
@@ -73,17 +74,15 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
         if rem:
             groups.append(GroupSpec("mamba", rem))
         return groups
-    if (
-        cfg.layer_pattern != "uniform"
-        or cfg.arch_type == "hybrid"
-        or cfg.n_experts > 0
-    ):
+    if cfg.layer_pattern != "uniform" or cfg.arch_type == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: only uniform dense decoders, SSMs and the zamba hybrid "
-            "are ported (ROADMAP, Queue 1 items 7-8)"
+            f"{cfg.name}: only uniform dense and MoE decoders, SSMs and the zamba "
+            "hybrid are ported (ROADMAP, Queue 1 item 8)"
         )
     if cfg.arch_type == "ssm":
         return [GroupSpec("mamba", cfg.n_layers)]
+    if cfg.n_experts > 0:
+        return [GroupSpec("moe", cfg.n_layers)]
     return [GroupSpec("dense", cfg.n_layers)]
 
 
@@ -94,6 +93,16 @@ def _init_dense_block(cfg: ModelConfig, gen: torch.Generator, device: torch.devi
         "attn": init_attention(cfg, gen, device),
         "norm2": init_rms_norm(cfg.d_model, dt, device),
         "mlp": init_mlp(cfg, gen, device),
+    }
+
+
+def _init_moe_block(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Dict:
+    dt = dtype_of(cfg.param_dtype)
+    return {
+        "norm1": init_rms_norm(cfg.d_model, dt, device),
+        "attn": init_attention(cfg, gen, device),
+        "norm2": init_rms_norm(cfg.d_model, dt, device),
+        "moe": init_moe(cfg, gen, device),
     }
 
 
@@ -115,6 +124,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
     for spec in layer_groups(cfg):
         if spec.kind == "dense":
             group = [_init_dense_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
+        elif spec.kind == "moe":
+            group = [_init_moe_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
         elif spec.kind == "mamba":
             group = [_init_mamba_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
         else:   # zamba: (n_groups, period) mamba blocks
@@ -146,6 +157,20 @@ def _dense_block_full(
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
 
 
+def _moe_block_full(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    window: int, seq_valid: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE layer: returns (x, this layer's aux loss)."""
+    h = attention_forward(
+        bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
+        window=window, seq_valid=seq_valid,
+    )
+    x = x + h
+    m, aux = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m, aux
+
+
 def _mamba_block_full(
     bp: Params, x: torch.Tensor, cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -175,11 +200,12 @@ def forward_full(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for inference (``repro.models.transformer.
     forward_full``) at positions 0..S-1: returns (logits (B,S,V), aux loss
-    0 — these groups carry none). With the kernels, attention is K4 and
-    every mamba layer's SSD is K6."""
+    (f32): the sum of the moe layers' Switch losses, 0 without them). With
+    the kernels, attention is K4 and every mamba layer's SSD is K6."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for spec, gp in zip(layer_groups(cfg), params["groups"]):
         if spec.kind == "zamba":
             x = _run_zamba_full(gp, params["shared_attn"], x, positions, cfg, seq_valid)
@@ -188,22 +214,28 @@ def forward_full(
                 x, _, _ = _mamba_block_full(bp, x, cfg)
         else:
             w = cfg.window_for_layer(0)  # uniform groups share one window
+            group_aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for bp in gp:
-                x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
-    return unembed(params["embed"], x, cfg), torch.zeros((), dtype=torch.float32)
+                if spec.kind == "moe":
+                    x, a = _moe_block_full(bp, x, positions, cfg, w, seq_valid)
+                    group_aux = group_aux + a
+                else:
+                    x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
+            aux = aux + group_aux
+    return unembed(params["embed"], x, cfg), aux
 
 
 def make_decode_caches(
     cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None,
 ) -> List[Cache]:
     """Empty caches matching ``layer_groups(cfg)`` on ``device`` (default
-    ``"cuda"``): full caches of ``max_len`` slots per lane, SSM state for
-    mamba layers, both for a zamba group."""
+    ``"cuda"``): full caches of ``max_len`` slots per lane (dense and moe
+    groups), SSM state for mamba layers, both for a zamba group."""
     _full_caches_only(cfg)
     dev = resolve_device(device)
     caches: List[Cache] = []
     for spec in layer_groups(cfg):
-        if spec.kind == "dense":
+        if spec.kind in ("dense", "moe"):
             caches.append(init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev))
         elif spec.kind == "mamba":
             caches.append(init_ssm_cache(cfg, spec.n_blocks, batch, dev))
@@ -215,21 +247,44 @@ def make_decode_caches(
     return caches
 
 
+def _attn_decode_sublayer(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
+    cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
+    cfg: ModelConfig, window: int,
+) -> torch.Tensor:
+    """The attention half of a decode layer against a full cache: write the
+    token's K/V at its (clamped) slot and attend. kv_pos is already
+    updated."""
+    h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
+    write_step(cache_k, cache_v, k_new, v_new, positions[:, 0])
+    return x + attention_decode(
+        bp["attn"], h_in, positions, cache_k, cache_v, kv_pos, kv_valid, cfg, window=window
+    )
+
+
 def _dense_block_decode(
     bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
     cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
     cfg: ModelConfig, window: int,
 ) -> torch.Tensor:
-    """One decode layer against a full cache: write the token's K/V at its
-    (clamped) slot, attend, then the MLP. kv_pos is already updated."""
-    h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
-    write_step(cache_k, cache_v, k_new, v_new, positions[:, 0])
-    h = attention_decode(
-        bp["attn"], h_in, positions, cache_k, cache_v, kv_pos, kv_valid, cfg, window=window
-    )
-    x = x + h
+    """One dense decode layer against a full cache: attention, then the MLP."""
+    x = _attn_decode_sublayer(bp, x, positions, cache_k, cache_v, kv_pos, kv_valid, cfg,
+                              window)
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def _moe_block_decode(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
+    cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
+    cfg: ModelConfig, window: int,
+) -> torch.Tensor:
+    """One MoE decode layer against a full cache: attention, then the
+    experts over the step's B rows (every lane, as in JAX)."""
+    x = _attn_decode_sublayer(bp, x, positions, cache_k, cache_v, kv_pos, kv_valid, cfg,
+                              window)
+    m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m
 
 
 def _mamba_block_decode(
@@ -259,8 +314,8 @@ def decode_step(
     ``min(pos, T - 1)`` (JAX clamps: the full-width server decodes its empty
     lanes too); ``kv_pos`` is updated once per group, before the layer
     loop; each mamba layer's ``h`` and ``conv`` are replaced in place. With
-    the kernels each attention layer (dense, or zamba's shared block)
-    attends through K5."""
+    the kernels each attention layer (dense or moe, or zamba's shared
+    block) attends through K5."""
     _full_caches_only(cfg)
     positions = pos[:, None].to(torch.int32)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
@@ -281,24 +336,25 @@ def decode_step(
                     attn["kv_pos"], kv_valid, cfg, 0,
                 )
             continue
+        block_fn = _dense_block_decode if spec.kind == "dense" else _moe_block_decode
         for i, bp in enumerate(gp):
-            x = _dense_block_decode(
+            x = block_fn(
                 bp, x, positions, attn["k"][i], attn["v"][i], attn["kv_pos"], kv_valid, cfg, 0,
             )
     return unembed(params["embed"], x, cfg), caches
 
 
-def _dense_block_decode_paged(
+def _paged_attn_sublayer(
     bp: Params, x: torch.Tensor, positions: torch.Tensor,
     pool_k: torch.Tensor, pool_v: torch.Tensor, page_table: torch.Tensor,
     kv_pos: torch.Tensor, cfg: ModelConfig, window: int, page_size: int,
     lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
     shared_pages: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One paged decode layer: write the token's K/V into its page cell,
-    attend through the page table, then the MLP. On the reference path the
-    hoisted linear views get the new token inserted at slot == position
-    (dropped past their width, like the pool write)."""
+    """The attention half of a paged decode layer: write the token's K/V
+    into its page cell, then attend through the page table. On the
+    reference path the hoisted linear views get the new token inserted at
+    slot == position (dropped past their width, like the pool write)."""
     pos = positions[:, 0]
     h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
     k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
@@ -312,8 +368,36 @@ def _dense_block_decode_paged(
         bp["attn"], h_in, positions, pool_k, pool_v, page_table, kv_pos, cfg,
         window=window, lin_k=lin_k, lin_v=lin_v, shared_pages=shared_pages,
     )
-    x = x + h
+    return x + h
+
+
+def _dense_block_decode_paged(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor,
+    pool_k: torch.Tensor, pool_v: torch.Tensor, page_table: torch.Tensor,
+    kv_pos: torch.Tensor, cfg: ModelConfig, window: int, page_size: int,
+    lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
+    shared_pages: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One dense paged decode layer: attention through the page table,
+    then the MLP."""
+    x = _paged_attn_sublayer(bp, x, positions, pool_k, pool_v, page_table, kv_pos, cfg,
+                             window, page_size, lin_k, lin_v, shared_pages)
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def _moe_block_decode_paged(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor,
+    pool_k: torch.Tensor, pool_v: torch.Tensor, page_table: torch.Tensor,
+    kv_pos: torch.Tensor, cfg: ModelConfig, window: int, page_size: int,
+    lin_k: Optional[torch.Tensor] = None, lin_v: Optional[torch.Tensor] = None,
+    shared_pages: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One MoE paged decode layer: attention through the page table, then
+    the experts over the step's B rows."""
+    x = _paged_attn_sublayer(bp, x, positions, pool_k, pool_v, page_table, kv_pos, cfg,
+                             window, page_size, lin_k, lin_v, shared_pages)
+    m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x + m
 
 
 def decode_step_paged(
@@ -345,10 +429,17 @@ def decode_step_paged(
     update_kv_pos_paged(kv_pos, pos)
     use_kernel = cfg.attn_impl != "reference"
     for spec, gp, pool in zip(layer_groups(cfg), params["groups"], pools):
+        if spec.kind not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"paged decode requires full-cache dense/moe groups, got {spec.kind}"
+            )
+        block_fn = (
+            _dense_block_decode_paged if spec.kind == "dense" else _moe_block_decode_paged
+        )
         if not use_kernel:
             lin_k, lin_v = gather_pages_stacked(pool["k"], pool["v"], page_table)
         for i, bp in enumerate(gp):
-            x = _dense_block_decode_paged(
+            x = block_fn(
                 bp, x, positions, pool["k"][i], pool["v"][i], page_table, kv_pos,
                 cfg, 0, page_size,
                 None if use_kernel else lin_k[i], None if use_kernel else lin_v[i],

@@ -4,11 +4,13 @@ arrays, into the port's parameter dicts.
 The tests draw weights once with ``repro.models.init_params``, convert them
 with ``jax.tree_util.tree_map(np.asarray, params)`` and hand them to both
 packages, so the two run the same numbers. Each group's leading L axis is
-un-stacked into a list of per-layer dicts (a zamba group's two leading
-axes, (n_groups, period), into a list of lists), and a zamba hybrid's
-``shared_attn`` block crosses as one dict. bf16 arrays (numpy dtype
-``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) cross through a
-16-bit integer view and come out bit-exact.
+un-stacked into a list of per-layer dicts (a moe group's (L, E, D, F)
+expert stacks and (L, D, E) router into per-layer (E, D, F) and (D, E); a
+zamba group's two leading axes, (n_groups, period), into a list of
+lists), and a zamba hybrid's ``shared_attn`` block crosses as one dict.
+bf16 arrays (numpy dtype ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses) cross through a 16-bit integer view and come
+out bit-exact.
 """
 
 from __future__ import annotations

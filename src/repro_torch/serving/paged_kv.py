@@ -67,6 +67,9 @@ class PrefixPageIndex:
         if d is not None:
             del self._by_digest[d]
 
+    def pages(self) -> List[int]:
+        return list(self._by_page)
+
     def __len__(self) -> int:
         return len(self._by_page)
 
@@ -88,7 +91,7 @@ class PagedKVAllocator:
     ) -> None:
         if not supports_append(cfg):
             raise NotImplementedError(
-                f"paged KV requires full-cache dense groups ({cfg.name})"
+                f"paged KV requires full-cache dense/moe groups ({cfg.name})"
             )
         if page_size <= 0 or n_pages <= 1:
             raise ValueError(f"page_size={page_size}, n_pages={n_pages}")

@@ -150,7 +150,7 @@ class BatchedServer:
     ) -> None:
         if not supports_append(cfg):
             raise NotImplementedError(
-                f"batched serving requires full-cache dense groups ({cfg.name})"
+                f"batched serving requires full-cache dense/moe groups ({cfg.name})"
             )
         if paged and max_len % page_size:
             raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")

@@ -122,3 +122,105 @@ def test_engine_generate_and_warmup_match_jax(tiny_dense_cfg, paged):
     assert keyless == teng.generate_ex(ids, max_new_tokens=7).token_ids
     keyed = teng.generate(ids, max_new_tokens=7, cache_key="s")
     assert keyed == jeng.generate(ids, max_new_tokens=7, cache_key="s") == keyless
+
+
+# -- P4: PrefixPageIndex.pages() ---------------------------------------------
+
+def test_prefix_index_pages_match_jax(tiny_dense_cfg):
+    """After a wave of three tenants sharing a 52-token system prompt (three
+    full pages at ps 16) through both paged batched servers on the same
+    weights and prompts, ``allocator.index.pages()`` lists the same pages
+    in the same order."""
+    from repro.models import init_params as jax_init_params
+    from repro.serving.scheduler import BatchedServer as JaxBatchedServer
+    from repro.serving.session_cache import SessionCachePool as JaxPool
+    from repro_torch.serving import BatchedServer, SessionCachePool
+
+    jparams = jax_init_params(jax.random.key(0), tiny_dense_cfg)
+    tcfg = _tcfg(tiny_dense_cfg)
+    kw = dict(n_slots=2, max_len=128, paged=True, page_size=PS)
+    jsrv = JaxBatchedServer(tiny_dense_cfg.replace(attn_impl="reference"), jparams,
+                            session_pool=JaxPool(capacity=8), **kw)
+    tsrv = BatchedServer(tcfg, _torch_params(jparams, tcfg),
+                         session_pool=SessionCachePool(capacity=8), device="cpu", **kw)
+    rng = np.random.default_rng(11)
+    system = rng.integers(8, tiny_dense_cfg.vocab_size, size=52).tolist()
+    reqs = [system + rng.integers(8, tiny_dense_cfg.vocab_size, size=5 + 2 * i).tolist()
+            for i in range(3)]
+    pages, tokens = {}, {}
+    for name, srv in (("jax", jsrv), ("torch", tsrv)):
+        assert srv.allocator.index.pages() == []
+        rids = [srv.submit(list(r), max_new=5, cache_key=f"t{i}") for i, r in enumerate(reqs)]
+        fin = {f.request_id: f.token_ids for f in srv.run_to_completion()}
+        tokens[name] = [fin[r] for r in rids]
+        pages[name] = srv.allocator.index.pages()
+    assert tokens["torch"] == tokens["jax"]
+    assert pages["torch"] == pages["jax"]
+    assert len(pages["torch"]) >= 3 and len(pages["torch"]) == len(tsrv.allocator.index)
+    assert tsrv.session_pool.shared_hits > 0
+
+
+# -- P5: sample(logits, temperature, top_k, generator) ------------------------
+
+def _logits(b=4, v=12, seed=5):
+    return np.random.default_rng(seed).normal(size=(b, v)).astype(np.float32) * 2.0
+
+
+@pytest.mark.parametrize("temperature", [0.0, -1.0])
+def test_sample_greedy_matches_jax(temperature):
+    """At temperature <= 0 both return the argmax, int32, with no key."""
+    from repro.serving.sampling import sample as jax_sample
+    from repro_torch.serving.sampling import sample
+
+    x = _logits(b=16, v=300)
+    j = np.asarray(jax_sample(jax.numpy.asarray(x), temperature=temperature, top_k=5))
+    t = sample(torch.from_numpy(x), temperature=temperature, top_k=5)
+    assert t.dtype == torch.int32
+    np.testing.assert_array_equal(t.numpy(), j)
+
+
+@pytest.mark.parametrize("top_k", [0, 1, 4])
+def test_sample_top_k_mask_matches_jax(top_k, monkeypatch):
+    """The logits JAX hands ``jax.random.categorical`` (divided by the
+    temperature, -1e30 below the k-th value) equal the port's exactly; a
+    missing generator trips the same assert as a missing key."""
+    from repro.serving import sampling as jsampling
+    from repro_torch.serving import sampling as tsampling
+
+    seen = []
+    real = jax.random.categorical
+    monkeypatch.setattr(jax.random, "categorical",
+                        lambda key, lg, axis=-1: seen.append(np.asarray(lg)) or real(key, lg,
+                                                                                      axis=axis))
+    x = _logits()
+    jsampling.sample(jax.numpy.asarray(x), temperature=0.7, top_k=top_k,
+                     key=jax.random.key(0))
+    t = tsampling._tempered(torch.from_numpy(x), 0.7, top_k).numpy()
+    np.testing.assert_array_equal(t, seen[0])
+    if top_k:
+        assert ((t > -1e29).sum(-1) == top_k).all()
+    with pytest.raises(AssertionError, match="PRNG key"):
+        tsampling.sample(torch.from_numpy(x), temperature=0.7, top_k=top_k)
+
+
+def test_sample_distribution_is_the_top_k_softmax():
+    """The draws of the two packages cannot be equal (different
+    generators), so their distribution is tested: 40,000 draws of each row
+    at temperature 0.7 and top_k 4 never leave the top 4, and their
+    frequencies pass a chi-square test against the softmax of the top-4
+    tempered logits at p >= 1e-3 (seeded, so the test is deterministic)."""
+    from scipy.stats import chisquare
+
+    from repro_torch.serving.sampling import sample
+
+    x = torch.from_numpy(_logits(b=3, v=12))
+    n, k, temp = 40_000, 4, 0.7
+    gen = torch.Generator().manual_seed(123)
+    for row in range(x.shape[0]):
+        draws = sample(x[row:row + 1].expand(n, -1), temperature=temp, top_k=k,
+                       generator=gen).long()
+        top = torch.topk(x[row], k).indices
+        assert torch.isin(draws, top).all()
+        expected = torch.softmax(x[row, top].double() / temp, dim=-1) * n
+        observed = torch.stack([(draws == i).sum() for i in top]).double()
+        assert chisquare(observed.numpy(), expected.numpy()).pvalue >= 1e-3

@@ -17,8 +17,9 @@ every observable must be equal:
   cost model: ``kv_ship_stats()`` and ``warm_starts()``;
 - ``repro_torch.data.synthetic``: the same sessions and training batches.
 
-Beside them: the fleet options of ``EdgeCluster.build`` raise (fleet is
-not ported), and keygroup members with different tokenizers are refused.
+Beside them: the fleet options of ``EdgeCluster.build`` mount the port's
+fleet layer (``tests/test_torch_fleet.py`` holds it to JAX), and keygroup
+members with different tokenizers are refused.
 
 The wall-clock reads of the Context Manager (tokenization, the async
 update) and of the edge node (warm start) are replaced in both packages by
@@ -237,12 +238,20 @@ def test_kv_shipping_matches_jax(force, monkeypatch):
 
 @pytest.mark.parametrize("option", [{"router": "residency"}, {"admission_limit": 4}])
 def test_fleet_options_raise_until_fleet_is_ported(option):
-    """The fleet layer is not ported: its cluster options raise rather than
-    being ignored."""
+    """The fleet layer is ported now, so the cluster's fleet options no
+    longer raise: each mounts what JAX's ``build`` mounts, and is not
+    ignored."""
     from repro_torch.edge import EchoLLMService, EdgeCluster
+    from repro_torch.fleet import AdmissionControl, FleetRouter
 
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        EdgeCluster.build(["a"], lambda nid: EchoLLMService(model="m"), **option)
+    cluster = EdgeCluster.build(["a"], lambda nid: EchoLLMService(model="m"), **option)
+    if "router" in option:
+        assert isinstance(cluster.router, FleetRouter)
+        assert cluster.router.policy.name == option["router"]
+    else:
+        assert cluster.router is None
+        assert isinstance(cluster.node("a").admission, AdmissionControl)
+        assert cluster.node("a").admission.limit == option["admission_limit"]
 
 
 def test_keygroup_members_must_share_a_tokenizer():

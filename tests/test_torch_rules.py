@@ -39,7 +39,9 @@ _ISOLATED = textwrap.dedent(
     for must in ("repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels.decode_attention.ops",
                  "repro_torch.core.manager", "repro_torch.store.kv_ship",
-                 "repro_torch.edge.cluster", "repro_torch.launch.serve"):
+                 "repro_torch.edge.cluster", "repro_torch.launch.serve",
+                 "repro_torch.fleet.workload", "repro_torch.models.moe",
+                 "repro_torch.configs.granite_moe_3b_a800m"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -59,9 +61,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module was walked: the kernels, the serving stack and the
-    # DisCEdge system layers (core, store, edge, data, launch)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 67
+    # every module was walked: the kernels, the serving stack, the
+    # DisCEdge system layers (core, store, edge, data, launch), the fleet
+    # layer, the MoE layer and the configs of qwen2, granite and dbrx
+    assert int(out.stdout.strip().splitlines()[-1]) >= 75
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -69,7 +72,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     device raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
-    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, PAPER_QWEN15_0_5B
     from repro_torch.launch import serve
     from repro_torch.models import init_params, params_from_numpy
     from repro_torch.serving import BatchedLLMService, InferenceEngine, TorchLLMService
@@ -77,6 +80,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     cfg = PAPER_QWEN15_0_5B.reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", PAPER_QWEN15_0_5B.name, "--turns", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", GRANITE_MOE_3B_A800M.name, "--turns", "1"])
+    moe = GRANITE_MOE_3B_A800M.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(moe)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchLLMService.create("m", moe, kv_pages=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedLLMService.create("m", moe, paged=True, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine.create(cfg, kv_pages=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -97,10 +109,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert svc.server.device.type == "cpu"
 
 
-def test_full_width_batched_server_is_not_ported():
-    """The full-width batched server (paged=False) is the default of
-    BatchedLLMService, as in JAX: without a device it runs on the card, so
-    it raises here (no GPU); with device="cpu" it serves."""
+def test_full_width_batched_server_is_ported_and_keeps_the_device_rule():
+    """The full-width batched server (paged=False) is ported and is the
+    default of BatchedLLMService, as in JAX: without a device it runs on
+    the card, so it raises here (no GPU); with device="cpu" it serves."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import PAPER_QWEN15_0_5B

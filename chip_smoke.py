@@ -47,12 +47,18 @@ non-zero):
                same inputs for identical outputs; B = 1 must split;
    gqa      — K1, K2 (with K1's continuation), K3, K4 and K5 vs their
                plain versions at the GQA groups of granite-moe (24/8 x 64,
-               G = 3) and qwen2 (14/2 x 64, G = 7), bf16 and f32: ragged
-               page bounds, planned and forced splits, queries inside and
-               past a shared run, chunks whose S·G is no multiple of K3's
-               64-row tile, p0 inside a key tile, window x softcap; then
-               each timed at its model's serving shape beside SDPA (K/V
-               expanded per query head) and its bound;
+               G = 3), qwen2 (14/2 x 64, G = 7), chatglm3 (32/2 x 128,
+               G = 16: G·Dh 2048, two row groups in K1 and K5, one lane
+               per K2 block), qwen2-vl (28/4 x 128) and gemma2 (32/16 x
+               128), bf16 and f32: ragged page bounds, planned and forced
+               splits, queries inside and past a shared run, chunks whose
+               S·G is no multiple of K3's 64-row tile, p0 inside a key
+               tile, window x softcap, and K5 on a wrapped 4096-slot ring
+               (window 4096 / 1000, softcap 50); then each timed at its
+               model's serving shape beside SDPA (K/V expanded per query
+               head) and its bound, gemma2's K4 and K5 also at its local
+               layers' (a 4608-token prefill at window 4096, decode over
+               the wrapped 4096-slot ring);
 7. main     — TorchLLMService at the full width of the paper's
                Qwen1.5-0.5B (random weights from a seed) serves 3 sessions
                x 3 turns of tokenized context on the paged route; turns 2-3
@@ -155,7 +161,25 @@ non-zero):
                ticket, flips both ways, turns on both mounts, K1, K2 and K3
                launched (counted per mount), batched turns equal to a fresh
                single-stream service's tokens (``{"fleet_path": ...}``);
-21. result  — JSON lines with every kernel's numbers (K1-K6), the card's
+21. chatglm3-6b, qwen2-vl-7b — each at full width (random bf16
+               weights; 12.5 / 15.2 GB): 2 sessions x 2 turns on the paged
+               and the dense route with exact launch counts, a
+               teacher-forced turn in bf16 (within CHATGLM3_LOGIT_REL /
+               QWEN2_VL_LOGIT_REL x the plain logits' std), a batched wave
+               of 8 tenants sharing a 512-token prompt (K1, K2, K3), and
+               the same teacher-forced check in f32 over the first 4
+               layers (NEW_F32_REL x std); qwen2-vl also a prefill of 256
+               patch embeddings on a 16 x 16 grid of (t, h, w) streams
+               plus 256 text tokens and 8 decode steps, kernel vs plain,
+               in bf16 and f32 (``{"chatglm3_path"}``, ``{"qwen2_vl_path"}``);
+22. gemma2-27b — full width (46 layers, ~54 GB of bf16 weights): one
+               session's two turns of ~4.6k tokens (bucket 128, past the
+               4096 window: the local ring packed by ``ring_from_prefill``
+               and wrapped in decode), each a full prefill, with exact K4
+               / K5 launch counts; a teacher-forced 4608 + 32-token turn
+               in bf16 (GEMMA2_LOGIT_REL x std) and in f32 over the first
+               2 pairs (``{"gemma2_path"}``);
+23. result  — JSON lines with every kernel's numbers (K1-K6), the card's
                name and power limit, and last ``{"ok": true, "device":
                {...}}``.
 
@@ -273,31 +297,36 @@ def _paged_case(gen, lens, H, KV, Dh, dtype, dev, mp=None, ps=PS):
     return q, pk, pv, table.to(dev), q_pos.to(dev), kv_pos.to(dev)
 
 
-def _k1_plan_str(B, KV, mp, ps, start=0) -> str:
-    from repro_torch.kernels.paged_attention.kernel import paged_plan
+def _k1_plan_str(B, KV, mp, ps, start=0, G=1, Dh=64) -> str:
+    from repro_torch.kernels.paged_attention.kernel import paged_plan, row_groups
 
-    splits, grid = paged_plan(B, KV, mp, ps, start)
-    return (f"B={B} KV={KV} MP={mp} ps={ps} start={start} -> splits {splits}, grid {grid} = "
-            f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
+    n_groups, rows = row_groups(G, Dh)
+    splits, grid = paged_plan(B, KV, mp, ps, start, n_groups)
+    return (f"B={B} KV={KV} G={G} Dh={Dh} MP={mp} ps={ps} start={start} -> {n_groups} row "
+            f"group(s) of {rows}, splits {splits}, grid {grid} = {grid[0] * grid[1] * grid[2]} "
+            f"blocks, cluster ({splits}, 1, 1)")
 
 
 class _forced_splits:
-    """Within the block, the split planners of K1 and K2
-    (``kernels/paged_attention/kernel.py``) choose ``splits``."""
+    """Within the block, the split planners of K1, K2 and K5
+    (``kernels/paged_attention/kernel.py``, ``kernels/decode_attention/
+    kernel.py``) choose ``splits``."""
 
     def __init__(self, splits):
         self.splits = splits
 
     def __enter__(self):
+        from repro_torch.kernels.decode_attention import kernel as k5
         from repro_torch.kernels.paged_attention import kernel
 
-        self.saved = kernel.plan_splits
-        kernel.plan_splits = lambda blocks, n_tokens: self.splits
+        self.saved = kernel.plan_splits, k5.plan_splits
+        kernel.plan_splits = k5.plan_splits = lambda blocks, n_tokens: self.splits
 
     def __exit__(self, *exc):
+        from repro_torch.kernels.decode_attention import kernel as k5
         from repro_torch.kernels.paged_attention import kernel
 
-        kernel.plan_splits = self.saved
+        kernel.plan_splits, k5.plan_splits = self.saved
 
 
 def _k1_check(name, out, again, want, tol=K1_TOL) -> float:
@@ -396,13 +425,17 @@ def _k1_timed(dev, gen, shape, lens, H, KV, Dh, n_layers) -> tuple:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ref
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda, paged_plan
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda,
+        paged_plan,
+        row_groups,
+    )
 
     B, G = len(lens), H // KV
     sets = [_paged_case(gen, lens, H, KV, Dh, torch.bfloat16, dev) for _ in range(n_layers)]
     mp = sets[0][3].shape[1]
-    splits, grid = paged_plan(B, KV, mp, PS)
-    log(f"K1 {shape}: {_k1_plan_str(B, KV, mp, PS)}")
+    splits, grid = paged_plan(B, KV, mp, PS, 0, row_groups(G, Dh)[0])
+    log(f"K1 {shape}: {_k1_plan_str(B, KV, mp, PS, 0, G, Dh)}")
     if B == 1:
         assert splits > 1, "K1 must split the walk across a cluster at B = 1"
     prepared = []
@@ -426,6 +459,8 @@ def _k1_timed(dev, gen, shape, lens, H, KV, Dh, n_layers) -> tuple:
     library_ms = device_time_ms(
         [lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])
          for a in lib_args])
+    # the bytes the work needs: each visited K/V row once (a KV head cut
+    # into row groups reads its rows once per group, the later reads from L2)
     visited = sum(lens)                                   # bound * ps per lane
     nbytes = (2 * visited * KV * Dh * 2 + 2 * B * H * Dh * 2
               + 4 * (visited + sum(-(-n // PS) for n in lens) + 2 * B))
@@ -862,11 +897,12 @@ def phase_k4(dev, n_layers: int) -> dict:
     return out
 
 
-def _k4_timed(dev, gen, shape, p0, S, T, H, KV, Dh, n_layers) -> dict:
+def _k4_timed(dev, gen, shape, p0, S, T, H, KV, Dh, n_layers, cap=0.0, window=0) -> dict:
     """K4 at one serving shape (B = 1, queries at p0 + [0, S) against T
-    slots, bf16, one input set per layer), timed beside its plain version
-    and SDPA with a causal mask (K/V expanded per query head at GQA
-    shapes, outside the timed region)."""
+    slots, bf16, one input set per layer, logit softcap ``cap``, sliding
+    ``window``), timed beside its plain version and SDPA with the same
+    causal (and window) mask (K/V expanded per query head at GQA shapes,
+    outside the timed region; SDPA has no softcap)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ref
@@ -876,20 +912,28 @@ def _k4_timed(dev, gen, shape, p0, S, T, H, KV, Dh, n_layers) -> dict:
     sets = [_linear_case(gen, (p0,), (S,), S, T, H, KV, Dh, torch.bfloat16, dev)
             for _ in range(n_layers)]
     i32 = [(q, k, v, qp, kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
-    kernel_ms = device_time_ms([lambda a=a: flash_attention_cuda(*a) for a in i32])
-    plain_ms = device_time_ms([lambda a=a: ref.flash_attention_ref(*a) for a in sets])
+    kernel_ms = device_time_ms([lambda a=a: flash_attention_cuda(*a, window=window, softcap=cap)
+                                for a in i32])
+    plain_ms = device_time_ms([lambda a=a: ref.flash_attention_ref(*a, window=window,
+                                                                   softcap=cap)
+                               for a in sets])
     n_kv = p0 + S
     rows = torch.arange(S, device=dev)[:, None] + p0
-    mask = torch.arange(n_kv, device=dev)[None, :] <= rows           # causal (S, n_kv)
+    cols = torch.arange(n_kv, device=dev)[None, :]
+    mask = cols <= rows                                             # causal (S, n_kv)
+    if window > 0:
+        mask &= rows - cols < window
     lib = [(q.transpose(1, 2).contiguous(),
             _expand_kv(k[:, :n_kv].transpose(1, 2).contiguous(), G),
             _expand_kv(v[:, :n_kv].transpose(1, 2).contiguous(), G)) for q, k, v, *_ in sets]
     library_ms = device_time_ms(
         [lambda a=a: F.scaled_dot_product_attention(*a, attn_mask=mask) for a in lib])
-    visible = S * p0 + S * (S + 1) // 2                             # causal (row, key) pairs
+    visible = int(mask.sum())                                       # attended (row, key) pairs
     nbytes = 2 * n_kv * KV * Dh * 2 + 2 * S * H * Dh * 2 + 4 * (S + 2 * T)
     bound_ms, bound_by = _bound(nbytes, 4 * H * Dh * visible)
-    log(f"K4 {shape} shape (B=1, S {S}, p0 {p0}, T {T}, {H}/{KV} x {Dh}): kernel_ms "
+    log(f"K4 {shape} shape (B=1, S {S}, p0 {p0}, T {T}, {H}/{KV} x {Dh}, softcap {cap}, "
+        f"window {window}): "
+        f"kernel_ms "
         f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
         f"{bound_ms:.6f} ({bound_by})")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -930,31 +974,47 @@ def phase_k5(dev, n_layers: int) -> dict:
     return out
 
 
-def _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers, T=2048, n_valid=1250) -> dict:
+def _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers, T=2048, n_valid=1250,
+              cap=0.0, ring=None) -> dict:
     """K5 at one serving shape: one decode query per lane against ``T``
-    slots holding ``n_valid`` tokens (bf16, one input set per layer), run
-    twice for identical bits, timed beside its plain version and SDPA with
-    a bool mask (K/V expanded per query head at GQA shapes, outside the
-    timed region)."""
+    slots holding ``n_valid`` tokens (bf16, one input set per layer, logit
+    softcap ``cap``), or with ``ring`` = (lanes' positions seen, window)
+    against a wrapped ring of ``T`` slots (``_ring_case``, every slot
+    valid and inside the window), run twice for identical bits, timed
+    beside its plain version and SDPA with a bool mask (K/V expanded per
+    query head at GQA shapes, outside the timed region; SDPA has no
+    softcap)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ref
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda, decode_plan
+    from repro_torch.kernels.paged_attention.kernel import row_groups
 
     G = H // KV
-    splits, grid = decode_plan(B, KV, T)
+    splits, grid = decode_plan(B, KV, T, row_groups(G, Dh)[0])
     log(f"K5 {name}: {_k5_plan_str(decode_plan, B, H, KV, Dh, T)}")
     if B == 1:
         assert splits > 1, "K5 must split the walk across a cluster at B = 1"
-    sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
-                         torch.bfloat16, dev) for _ in range(n_layers)]
+    window = 0
+    if ring is None:
+        sets = [_linear_case(gen, (n_valid - 1,) * B, (1,) * B, 1, T, H, KV, Dh,
+                             torch.bfloat16, dev) for _ in range(n_layers)]
+    else:
+        seen, window = ring
+        sets = [_ring_case(gen, seen, H, KV, Dh, torch.bfloat16, dev, T)
+                for _ in range(n_layers)]
+        assert all(n >= T for n in seen) and window >= T, (seen, window)
+        n_valid = T
     prep = [(q.reshape(B, KV, G, Dh).contiguous(), k, v, qp.reshape(B).contiguous(),
              kp, va.to(torch.int32)) for q, k, v, qp, kp, va in sets]
-    first, again = (decode_attention_cuda(*prep[0]) for _ in range(2))
+    run = lambda a: decode_attention_cuda(*a, window=window, softcap=cap)  # noqa: E731
+    first, again = run(prep[0]), run(prep[0])
     torch.cuda.synchronize()
     assert torch.equal(first, again), f"K5 {name}: two runs differ"
-    kernel_ms = device_time_ms([lambda a=a: decode_attention_cuda(*a) for a in prep])
-    plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a) for a in sets])
+    kernel_ms = device_time_ms([lambda a=a: run(a) for a in prep])
+    plain_ms = device_time_ms([lambda a=a: ref.decode_attention_ref(*a, window=window,
+                                                                    softcap=cap)
+                               for a in sets])
     lib = [(q.transpose(1, 2).contiguous(), _expand_kv(k.transpose(1, 2).contiguous(), G),
             _expand_kv(v.transpose(1, 2).contiguous(), G), va[:, None, None, :])
            for q, k, v, _, _, va in sets]
@@ -963,7 +1023,7 @@ def _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers, T=2048, n_valid=1250) -> d
          for a in lib])
     nbytes = B * (2 * n_valid * KV * Dh * 2 + 2 * H * Dh * 2 + 4 * (1 + 2 * T))
     bound_ms, bound_by = _bound(nbytes, B * 4 * H * Dh * n_valid)
-    log(f"K5 {name} (T {T}, {n_valid} valid slots, {H}/{KV} x {Dh}): kernel_ms "
+    log(f"K5 {name} (T {T}, {n_valid} valid slots, {H}/{KV} x {Dh}, softcap {cap}): kernel_ms "
         f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} bound_ms "
         f"{bound_ms:.6f} ({bound_by}, {nbytes} B); two runs identical")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -971,33 +1031,102 @@ def _k5_timed(dev, gen, name, B, H, KV, Dh, n_layers, T=2048, n_valid=1250) -> d
 
 
 def _k5_plan_str(plan, B, H, KV, Dh, T) -> str:
-    splits, grid = plan(B, KV, T)
-    return (f"B={B} H={H} KV={KV} Dh={Dh} T={T} -> splits {splits}, grid {grid} = "
-            f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
+    from repro_torch.kernels.paged_attention.kernel import row_groups
+
+    n_groups, rows = row_groups(H // KV, Dh)
+    splits, grid = plan(B, KV, T, n_groups)
+    return (f"B={B} H={H} KV={KV} Dh={Dh} T={T} -> {n_groups} row group(s) of {rows}, splits "
+            f"{splits}, grid {grid} = {grid[0] * grid[1] * grid[2]} blocks, cluster "
+            f"({splits}, 1, 1)")
 
 
 # ---------------------------------------------------------------------------
-# K1-K5 at the GQA groups of the MoE and Qwen2 models: granite-moe-3b-a800m
-# (24/8 x 64, G = 3) and qwen2-0.5b (14/2 x 64, G = 7)
+# K1-K5 at the GQA groups of the assigned models: granite-moe-3b-a800m
+# (24/8 x 64, G = 3), qwen2-0.5b (14/2 x 64, G = 7), chatglm3-6b (32/2 x
+# 128, G = 16: G * Dh = 2048, two row groups in K1 and K5), qwen2-vl-7b
+# (28/4 x 128, G = 7) and gemma2-27b (32/16 x 128, G = 2, softcap 50)
 # ---------------------------------------------------------------------------
 
-GQA_MODELS = (("granite", 24, 8, 64), ("qwen2", 14, 2, 64))
+GQA_MODELS = (("granite", 24, 8, 64), ("qwen2", 14, 2, 64), ("chatglm3", 32, 2, 128),
+              ("qwen2-vl", 28, 4, 128), ("gemma2", 32, 16, 128))
+GQA_SOFTCAP = {"gemma2": 50.0}   # the attention softcap of a model's serving shape
 GQA_F32_TOL = 1e-4   # K1-K5 in f32 (TF32 off) at these shapes: K45_F32_TOL,
                      # the same f32 products summed in another order
+RING_SLOTS, RING_WINDOW, RING_CAP = 4096, 4096, 50.0   # gemma2's local layers
+
+
+def _ring_case(gen, lens, H, KV, Dh, dtype, dev, T=RING_SLOTS):
+    """One decode query per lane against a ring cache of ``T`` slots that
+    has seen ``lens[b]`` positions: slot t holds the position p with p % T
+    == t among the last T (so the slots are rotated out of position order
+    once a lane has wrapped), -1 where none. Returns K5's arguments (q
+    (B, 1, H, Dh), k, v, q_pos (B, 1), kv_pos, kv_valid)."""
+    import torch
+
+    B = len(lens)
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, KV, Dh, generator=gen, device=dev).to(dtype)
+    slot = torch.arange(T, dtype=torch.int32, device=dev)
+    rows = []
+    for n in lens:
+        if n <= T:
+            rows.append(torch.where(slot < n, slot, torch.full_like(slot, -1)))
+        else:
+            base = n - T
+            rows.append(base + torch.remainder(slot - base, T))
+    kv_pos = torch.stack(rows).contiguous()
+    q_pos = torch.tensor([[n - 1] for n in lens], dtype=torch.int32, device=dev)
+    return q, k, v, q_pos, kv_pos, (kv_pos >= 0).contiguous()
+
+
+def _k5_ring_check(tag, dtype, H, KV, Dh, gen, dev) -> float:
+    """K5 on a wrapped ring against its plain version: lanes that have
+    seen 4608, 5000, 8191 and 1500 positions (three wrapped, one not), the
+    window 4096 and softcap 50 of gemma2's local layers, and a window of
+    1000 that masks most of each rotated ring, at planned and forced 1 / 8
+    splits, twice for identical bits."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    tol = K45_TOL if dtype == torch.bfloat16 else GQA_F32_TOL
+    args = _ring_case(gen, (4608, 5000, 8191, 1500), H, KV, Dh, dtype, dev)
+    assert (args[4][0, :512] >= 4096).all() and (args[4][0, 512:] < 4096).all()   # rotated
+    err = 0.0
+    for splits in (None, 1, 8):
+        with _forced_splits(splits) if splits else contextlib.nullcontext():
+            for window in (RING_WINDOW, 1000):
+                run = lambda: ops.decode_attention(  # noqa: E731
+                    *args, window=window, softcap=RING_CAP)
+                out, again = run(), run()
+                want = ref.decode_attention_ref(*args, window=window, softcap=RING_CAP)
+                torch.cuda.synchronize()
+                assert torch.isfinite(out.float()).all() and torch.equal(out, again), tag
+                e = (out.float() - want.float()).abs().max().item()
+                assert e <= tol, (f"K5 ring {tag} splits {splits} window {window}", e, tol)
+                err = max(err, e)
+    log(f"K5 wrapped ring {tag} {str(dtype)[6:]} (4096 slots, lanes at 4608/5000/8191/1500 "
+        f"positions, window 4096 and 1000, softcap {RING_CAP}, planned and forced 1/8 splits, "
+        f"two runs identical): max_abs_err {err:.3e} (bound {tol})")
+    return err
 
 
 def phase_gqa(dev, n_layers: int) -> dict:
     """K1, K2 (with K1's continuation), K3, K4 and K5 against their plain
-    versions at granite's (24/8 x 64, G = 3) and qwen2's (14/2 x 64, G = 7)
-    head layouts, in bf16 and in f32: K1 on ragged lanes (an empty one,
+    versions at the head layouts of ``GQA_MODELS`` (G = 3, 7, 16 at
+    G * Dh = 2048, 7 and 2 at d_head 128), in bf16 and in f32: K1 on
+    ragged lanes (an empty one,
     page bounds mid-page) at ps 8/16/64 with planned and forced 1/8
     splits, window x softcap; K2's stats and the cascade (K2 + K1's
     continuation, forced 1/8 splits too) with queries inside, at the end of
     and past a 256-token run; K3 with chunks whose S·G is no multiple of
     its 64-row tile (S 1, 17, 150, 256), p0 inside a key tile and a page,
     ps 8/16/64, window x softcap; K4 prefills and appends with p0 inside a
-    key tile; K5 at B = 1 and ragged B = 8. Then each kernel timed at its
-    model's serving shape beside its plain version, SDPA and its bound.
+    key tile; K5 at B = 1 and ragged B = 8 (planned and forced 1/8
+    splits), and on a wrapped ring (``_k5_ring_check``). Then each kernel
+    timed at its model's serving shape (gemma2's with softcap 50, and K4 /
+    K5 also at its local layers' window and ring) beside its plain
+    version, SDPA and its bound.
     Returns {"errors": bf16 max abs error per kernel, "timed": {model:
     {kernel: stats}}}."""
     import torch
@@ -1083,20 +1212,38 @@ def phase_gqa(dev, n_layers: int) -> dict:
                 (f"{tag} B=8 window x softcap", tuple(n - 1 for n in lens8), (1,) * 8, 1, 2048,
                  H, KV, Dh, 300, 30.0),
             ], gen, dev, dtypes=(dtype,))
+            for splits in (1, 8):         # the forced edges of the split walk
+                with _forced_splits(splits):
+                    k5 = max(k5, _check_linear(
+                        "K5", dec_ops.decode_attention, dec_ref.decode_attention_ref,
+                        [(f"{tag} B=8 ragged splits {splits}", tuple(n - 1 for n in lens8),
+                          (1,) * 8, 1, 2048, H, KV, Dh, 300, 30.0)], gen, dev, dtypes=(dtype,)))
+            k5 = max(k5, _k5_ring_check(tag, dtype, H, KV, Dh, gen, dev))
             if bf16:
                 for key, e in (("paged_attention", max(k1, k2c)), ("shared_prefix", k2),
                                ("chunked_prefill", k3), ("flash_attention", k4),
                                ("decode_attention", k5)):
                     errs[key] = max(errs[key], e)
+        cap = GQA_SOFTCAP.get(model, 0.0)
         timed[model] = {
             "paged_attention": _k1_timed(dev, gen, f"{model} B=1", (1024,), H, KV, Dh,
                                          n_layers)[0],
             "shared_prefix": _k2_timed(dev, gen, H, KV, Dh, n_layers),
             "chunked_prefill": _k3_timed(dev, gen, H, KV, Dh, n_layers),
             "flash_attention": _k4_timed(dev, gen, f"{model} prefill", 0, 1024, 1024, H, KV,
-                                         Dh, n_layers),
-            "decode_attention": _k5_timed(dev, gen, f"{model} B=1", 1, H, KV, Dh, n_layers),
+                                         Dh, n_layers, cap=cap),
+            "decode_attention": _k5_timed(dev, gen, f"{model} B=1", 1, H, KV, Dh, n_layers,
+                                          cap=cap),
         }
+        if model == "gemma2":
+            # its local layers' shapes: a 4608-token prefill at window 4096,
+            # and decode over the wrapped 4096-slot ring
+            timed[model]["flash_attention_local"] = _k4_timed(
+                dev, gen, "gemma2 local prefill", 0, 4608, 4608, H, KV, Dh, n_layers, cap=cap,
+                window=RING_WINDOW)
+            timed[model]["decode_attention_ring"] = _k5_timed(
+                dev, gen, "gemma2 local ring B=1", 1, H, KV, Dh, n_layers, T=RING_SLOTS,
+                cap=cap, ring=((4640,), RING_WINDOW))
     log(f"gqa: bf16 max_abs_err per kernel {json.dumps(errs)}")
     return {"errors": errs, "timed": timed}
 
@@ -2763,6 +2910,336 @@ def phase_granite(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# chatglm3-6b, qwen2-vl-7b and gemma2-27b at full width
+# ---------------------------------------------------------------------------
+
+# kernel vs plain logits of a teacher-forced turn in bf16, as a multiple of
+# the plain logits' std; set from CPU runs before the first run on the card
+# (PERF.md §6)
+CHATGLM3_LOGIT_REL = 0.3
+QWEN2_VL_LOGIT_REL = 0.3
+GEMMA2_LOGIT_REL = 0.3
+NEW_F32_REL = 1e-3      # the same in f32 (TF32 off, 4 layers), as SSM_F32_REL
+VISION_GRID = 16        # qwen2-vl's 256 patches: a 16 x 16 grid
+
+
+def _f32_check(name, cfg, ids, forced, dev, teacher) -> dict:
+    """``cfg`` cut to its first 4 layers in f32 (weights from seed 0 in
+    f32, TF32 off): ``teacher(cfg, params, ids, forced, dev)`` through the
+    kernel and the plain path, max |logit diff| <= NEW_F32_REL x std."""
+    import torch
+    from repro_torch.models import init_params
+
+    f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32",
+                      attn_impl="cuda")
+    p32 = init_params(f32, seed=0, device=dev)
+    kern = teacher(f32, p32, ids, forced, dev)
+    plain = teacher(f32.replace(attn_impl="reference"), p32, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    std = plain.std().item()
+    diff = (kern - plain).abs().max().item()
+    log(f"{name} f32 (4 of {cfg.n_layers} layers, TF32 off): teacher-forced {len(ids)} + "
+        f"{len(forced)} tokens: max |logit diff| kernel vs plain {diff:.4e} = {diff / std:.3e} "
+        f"x logit std {std:.4f} (bound {NEW_F32_REL} x std)")
+    assert diff <= NEW_F32_REL * std, (name, diff, std)
+    del p32, kern, plain
+    torch.cuda.empty_cache()
+    return {"layers": 4, "max_logit_diff": diff, "logit_std": std, "bound": NEW_F32_REL * std}
+
+
+def _bf16_check(name, cfg, params, ids, forced, dev, teacher, rel) -> dict:
+    """A teacher-forced turn through the kernel path and the plain path
+    in bf16: max |logit diff| <= ``rel`` x the plain logits' std."""
+    import torch
+
+    kern = teacher(cfg, params, ids, forced, dev)
+    plain = teacher(cfg.replace(attn_impl="reference"), params, ids, forced, dev)
+    torch.cuda.synchronize()
+    assert kern.shape == plain.shape == (len(forced) + 1, cfg.vocab_size), kern.shape
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    std = plain.std().item()
+    diff = (kern - plain).abs().max().item()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"{name} equivalence (bf16): teacher-forced turn of {len(ids)} + {len(forced)} tokens: "
+        f"max |logit diff| kernel vs plain {diff:.4e} = {diff / std:.3f} x logit std "
+        f"{std:.4f} (bound {rel} x std), argmax agreement {agree:.3f}")
+    assert diff <= rel * std, (name, diff, rel, std)
+    return {"max_logit_diff": diff, "logit_std": std, "bound": rel * std,
+            "argmax_agreement": agree}
+
+
+def vision_inputs(cfg, n_text, gen, dev):
+    """A qwen2-vl prompt of ``cfg.n_patches`` patch embeddings (the stub
+    vision frontend's, N(0, 0.02) like the token table) on a 16 x 16 grid,
+    then ``n_text`` text tokens: token ids (1, S), M-RoPE positions (3, 1,
+    S) with three different streams over the patches (t = 0, h = row, w =
+    column) and one stream from 16 on over the text, patch embeddings (1,
+    P, D)."""
+    import torch
+
+    n = cfg.n_patches
+    assert n == VISION_GRID * VISION_GRID, n
+    s = n + n_text
+    toks = torch.randint(300, cfg.vocab_size, (1, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    text = VISION_GRID + torch.arange(n_text, dtype=torch.int32, device=dev)
+    pos = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                       torch.cat([i // VISION_GRID, text]),
+                       torch.cat([i % VISION_GRID, text])])[:, None, :]
+    patches = (torch.randn(1, n, cfg.d_model, generator=gen, device=dev) * 0.02).to(
+        getattr(torch, cfg.compute_dtype))
+    return toks, pos.contiguous(), patches
+
+
+def _vision_teacher(cfg, params, toks, pos, patches, forced, dev):
+    """Prefill of a vision prompt (K4 per layer on the kernel path), then
+    ``forced`` text tokens decoded one by one (K5): every step's logits,
+    f32."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches, nxt = prefill(params, cfg, toks, toks.shape[1] + 64, positions=pos,
+                                  patch_embeds=patches)
+    out = [logits[0]]
+    for t in forced:
+        lg, caches = decode_step(params, cfg, caches,
+                                 torch.tensor([[t]], dtype=torch.int32, device=dev), nxt)
+        nxt = nxt + 1
+        out.append(lg[0, 0])
+    return torch.stack(out).float()
+
+
+def _vision_check(cfg, params, dev, rel) -> dict:
+    """qwen2-vl's multimodal prefill on the card: 256 patch embeddings and
+    256 text tokens with three position streams, then 8 decode steps,
+    kernel path (exact K4 / K5 launches) against plain path within ``rel``
+    x std; the same prompt with one stream broadcast gives other logits
+    (the streams reach the kernels' inputs)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    toks, pos, patches = vision_inputs(cfg, 256, gen, dev)
+    forced = torch.randint(300, cfg.vocab_size, (8,), generator=gen, device=dev).tolist()
+    counters = _dense_counters()
+    for c in counters.values():
+        c.launches = 0
+    kern = _vision_teacher(cfg, params, toks, pos, patches, forced, dev)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * len(forced)}
+    assert launches == want, (launches, want)
+    plain = _vision_teacher(cfg.replace(attn_impl="reference"), params, toks, pos, patches,
+                            forced, dev)
+    flat = _vision_teacher(cfg, params, toks, pos[:1].expand(3, 1, -1), patches, forced[:1],
+                           dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    std = plain.std().item()
+    diff = (kern - plain).abs().max().item()
+    moved = (flat[0] - kern[0]).abs().max().item()
+    log(f"{cfg.name} vision prefill ({cfg.n_patches} patches on a {VISION_GRID} x "
+        f"{VISION_GRID} grid + 256 text tokens, three M-RoPE streams, {str(cfg.compute_dtype)}) + "
+        f"8 decode steps: launches {launches}; max |logit diff| kernel vs plain {diff:.4e} = "
+        f"{diff / std:.3e} x std {std:.4f} (bound {rel} x std); one stream broadcast moves the "
+        f"last logits by {moved:.4e}")
+    assert diff <= rel * std, (cfg.name, diff, rel, std)
+    assert moved > 2 * diff, (moved, diff)   # the streams matter more than the kernels
+    return {"launches": launches, "max_logit_diff": diff, "logit_std": std,
+            "bound": rel * std, "broadcast_stream_moves_logits_by": moved}
+
+
+def phase_gqa_model(dev, base, rel, vision=False) -> dict:
+    """One full-width GQA decoder at d_head 128 (random bf16 weights from
+    seed 0): 2 sessions x 2 turns (contexts of 300-1100 tokens, 32 new
+    tokens) on the paged route (K3 + K1) and on the dense route (K4 + K5)
+    with exact launch counts; session s1's last turn teacher-forced through
+    the kernel and plain paths (paged) within ``rel`` x std; a
+    ``BatchedLLMService(paged=True)`` wave of 8 tenants sharing a 512-token
+    system prompt (K1, K2 and K3 launched, the prompt shared); with
+    ``vision``, qwen2-vl's multimodal prefill (``_vision_check``); then the
+    teacher-forced check in f32 over the first 4 layers (and the vision
+    check in f32). The model is freed after."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedLLMService, TorchLLMService
+
+    cfg = base.replace(attn_impl="cuda")
+    name = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    mk = lambda **kw: TorchLLMService.create(name, cfg, max_len=2048, device=dev,  # noqa: E731
+                                             params=params, **kw)
+    services = {"paged": mk(page_size=PS, kv_pages=512), "dense": mk()}
+    rng = np.random.default_rng(11)
+    for svc in services.values():          # warm-up, not counted
+        svc.completion(rng.integers(300, 5000, size=64).tolist(), [300, 301], 4,
+                       cache_key="warmup")
+    torch.cuda.synchronize()
+    log(f"{name}: weights and services {time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, G * Dh "
+        f"{cfg.group_size * cfg.d_head}, rope {cfg.rope_style}, bf16 weights "
+        f"{sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} GB)")
+    out = {}
+    for route, svc in services.items():
+        contexts = {f"s{i}": rng.integers(300, cfg.vocab_size, size=300 + 500 * i).tolist()
+                    for i in range(2)}
+        out[route] = _route_launches(svc, name, route, contexts, 2, 200, rng)
+    hist, forced = out["paged"].pop("last")["s1"]
+    out["dense"].pop("last")
+    del services
+    ids = hist[: len(hist) - len(forced)]
+    out["bf16"] = _bf16_check(name, cfg, params, ids, forced, dev, teacher_forced_logits, rel)
+
+    # the batched server: 8 tenants sharing a 512-token system prompt
+    bsvc = BatchedLLMService.create(name, cfg, n_slots=8, max_len=2048, paged=True,
+                                    page_size=PS, kv_pages=1024, prefill_chunk_tokens=256,
+                                    device=dev, params=params)
+    server = bsvc.server
+    server.submit(rng.integers(300, 5000, size=40).tolist(), max_new=4)   # warm-up
+    server.run_to_completion()
+    server.finished.clear()
+    system = rng.integers(300, cfg.vocab_size, size=512).tolist()
+    questions = [rng.integers(300, cfg.vocab_size, size=int(rng.integers(24, 73))).tolist()
+                 for _ in range(8)]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    hits0 = server.session_pool.shared_hits
+    rids = [server.submit(system + q, max_new=16, cache_key=f"tenant{i}")
+            for i, q in enumerate(questions)]
+    t_wave = time.perf_counter()
+    steps_b = _drive(server)
+    wave_s = time.perf_counter() - t_wave
+    fin = {f.request_id: f for f in server.finished}
+    launches = {k: c.launches for k, c in counters.items()}
+    gen_tokens = sum(len(fin[r].token_ids) for r in rids)
+    shared = server.session_pool.shared_hits - hits0
+    log(f"{name} batched: wave of 8 tenants (512-token shared prompt + 24-72 tokens, 16 new): "
+        f"{gen_tokens} tokens in {wave_s:.3f} s over {len(steps_b)} steps, shared hits "
+        f"{shared}; kernel launches {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+    assert shared >= 7, shared
+    pure8 = [ms for ready, ms, pure in steps_b if pure and ready == 8]
+    out["batched"] = {"launches": launches, "shared_hits": shared,
+                      "wave_tokens_per_s": gen_tokens / wave_s,
+                      "decode_ms_per_step_b8_p50": float(np.percentile(pure8, 50))
+                      if pure8 else "not measured"}
+    del bsvc, server
+    if vision:
+        out["vision"] = _vision_check(cfg, params, dev, rel)
+    del params
+    torch.cuda.empty_cache()
+
+    seq = np.random.default_rng(1).integers(300, cfg.vocab_size, size=272).tolist()
+    out["f32"] = _f32_check(name, cfg, seq[:256], seq[256:], dev, teacher_forced_logits)
+    if vision:
+        f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+        p32 = init_params(f32, seed=0, device=dev)
+        out["vision_f32"] = _vision_check(f32, p32, dev, NEW_F32_REL)
+        del p32
+        torch.cuda.empty_cache()
+    log(f"{name}: summary {json.dumps(out)}")
+    return out
+
+
+def _gemma_teacher(cfg, params, ids, forced, dev):
+    """Exact-length prefill of ``ids`` (no bucket padding) into 8192-slot
+    caches (the local ring: 4096), then ``forced`` decoded one by one;
+    every step's logits (len(forced) + 1, V), f32: last positions only,
+    never a (S, V) tensor."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches, pos = prefill(params, cfg, torch.tensor([ids], device=dev), 8192)
+    out = [logits[0].float()]
+    for t in forced:
+        lg, caches = decode_step(params, cfg, caches,
+                                 torch.tensor([[t]], dtype=torch.int32, device=dev), pos)
+        pos = pos + 1
+        out.append(lg[0, 0].float())
+    return torch.stack(out)
+
+
+def phase_gemma2(dev) -> dict:
+    """Full-width gemma2-27b (46 layers as 23 local/global pairs, window
+    4096, attention softcap 50, final softcap 30; random bf16 weights from
+    seed 0, ~54 GB; nothing cut) on the dense route, its only route: one
+    session whose first turn (~4.6k tokens, bucket 128, max_len 8192)
+    prefills past the local ring (``ring_from_prefill`` on the card) and
+    decodes 32 tokens through the wrapped ring, then a second turn, again a
+    full prefill (no pool); exact K4 (46 per prefill) and K5 (46 per decode
+    step) launches; a teacher-forced turn of 4608 + 32 tokens through the
+    kernel and plain paths in bf16 within GEMMA2_LOGIT_REL x std, and in f32
+    over the first 2 pairs within NEW_F32_REL x std. The model is freed
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import GEMMA2_27B
+    from repro_torch.serving import InferenceEngine, TorchLLMService
+    from repro_torch.tokenizer import assistant_header, encode_turn, get_tokenizer
+
+    cfg = GEMMA2_27B.replace(attn_impl="cuda")
+    name = cfg.name
+    t0 = time.perf_counter()
+    engine = InferenceEngine.create(cfg, seed=0, max_len=8192, bucket=128, device=dev)
+    svc = TorchLLMService(model=name, engine=engine,
+                          tokenizer=get_tokenizer(cfg.vocab_size, seed=0, name=name))
+    assert engine.session_pool is None
+    params = engine.params
+    tok = svc.tokenizer
+    rng = np.random.default_rng(12)
+    svc.completion(rng.integers(300, 5000, size=100).tolist(), [300, 301], 4)   # warm-up
+    torch.cuda.synchronize()
+    log(f"{name}: service built in {time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, window {cfg.sliding_window}, "
+        f"bf16 weights {sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} GB, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    counters = _dense_counters()
+    for c in counters.values():
+        c.launches = 0
+    ctx = rng.integers(300, cfg.vocab_size, size=4500).tolist()
+    turns, decode_steps = [], 0
+    for turn in range(2):
+        ids = encode_turn(tok, "user", f"turn {turn + 1}: summarise the attached log")
+        p = ids[:-2] + rng.integers(300, cfg.vocab_size, size=40).tolist() + ids[-2:] + \
+            assistant_header(tok)
+        r = svc.completion(ctx, p, 32, cache_key="s0")
+        n_in = len(ctx) + len(p)
+        assert not r.cache_hit and r.prefill_tokens == n_in, (turn, r.prefill_tokens)
+        assert 0 < len(r.token_ids) <= 32, r.token_ids
+        decode_steps += _decode_steps(len(r.token_ids), 32)
+        turns.append({"turn": turn + 1, "input_tokens": n_in, "bucket": -(-n_in // 128) * 128,
+                      "ttft_ms": r.ttft_ms, "decode_p50_ms": r.decode_p50_ms,
+                      "generated": len(r.token_ids)})
+        log(f"{name}: s0 turn {turn + 1}: input {n_in} (bucket {-(-n_in // 128) * 128} > "
+            f"window {cfg.sliding_window}) ttft_ms {r.ttft_ms:.3f} decode_p50_ms/token "
+            f"{r.decode_p50_ms:.3f} generated {len(r.token_ids)}")
+        ctx = ctx + p + r.token_ids
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"flash_attention": cfg.n_layers * len(turns),
+            "decode_attention": cfg.n_layers * decode_steps}
+    log(f"{name}: kernel launches {launches} over {len(turns)} prefills and {decode_steps} "
+        f"decode steps (expected {want})")
+    assert launches == want, (launches, want)
+    out = {"turns": turns, "launches": launches, "decode_steps": decode_steps,
+           "ttft_ms_p50": float(np.percentile([t["ttft_ms"] for t in turns], 50)),
+           "decode_ms_per_token_p50": float(np.percentile([t["decode_p50_ms"] for t in turns],
+                                                          50))}
+    seq = ctx[:4640]
+    out["bf16"] = _bf16_check(name, cfg, params, seq[:4608], seq[4608:], dev, _gemma_teacher,
+                              GEMMA2_LOGIT_REL)
+    del svc, engine, params
+    torch.cuda.empty_cache()
+    out["f32"] = _f32_check(name, cfg, seq[:4608], seq[4608:4624], dev, _gemma_teacher)
+    log(f"{name}: summary {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The fleet layer: residency routing, admission control and adaptive
 # mounting over four nodes of the full-width paper model
 # ---------------------------------------------------------------------------
@@ -3076,6 +3553,12 @@ def main() -> int:
     qwen2 = phase_qwen2(dev)
     granite = phase_granite(dev)
     fleet = phase_fleet(dev)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import CHATGLM3_6B, QWEN2_VL_7B
+
+    chatglm3 = phase_gqa_model(dev, CHATGLM3_6B, CHATGLM3_LOGIT_REL)
+    qwen2_vl = phase_gqa_model(dev, QWEN2_VL_7B, QWEN2_VL_LOGIT_REL, vision=True)
+    gemma2 = phase_gemma2(dev)
     # the GQA edges' bf16 errors count in each kernel's max_abs_err
     for kk in (k1, k2, k3, k4, k5):
         kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
@@ -3097,6 +3580,9 @@ def main() -> int:
     print(json.dumps({"qwen2_path": qwen2}))
     print(json.dumps({"granite_path": granite}))
     print(json.dumps({"fleet_path": fleet}))
+    print(json.dumps({"chatglm3_path": chatglm3}))
+    print(json.dumps({"qwen2_vl_path": qwen2_vl}))
+    print(json.dumps({"gemma2_path": gemma2}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

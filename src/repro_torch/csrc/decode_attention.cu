@@ -18,12 +18,15 @@
 // one block's load latency, not by bandwidth.
 //
 // Design: a split walk (csrc/split_decode.cuh). One cluster of `splits`
-// blocks of 8 warps per (lane, KV head); the host picks `splits`
+// blocks of 8 warps per (lane, KV head, row group); the host picks `splits`
 // (kernels/decode_attention/kernel.py decode_plan): 16 clusters of 8 at
 // B = 1 for the paper model (256 slots per block: one 32-slot sub-tile per
-// warp), 32 of 4 for Zamba2, 128 of 1 at B = 8. The R = G query rows of the
-// KV head go together. Each lane reads its slot's kv_pos and kv_valid a
-// sub-tile ahead; a sub-tile with no unmasked slot is skipped whole
+// warp), 32 of 4 for Zamba2, 128 of 1 at B = 8. The R <= RG query rows of
+// a row group go together: a block holds at most kMaxRowsDh / Dh rows, so
+// a KV head with G * Dh above that (chatglm3's 2048) is cut into
+// ceil(G / RG) row groups, each its own cluster, each reading the K/V
+// rows (the second time mostly from L2), as K1. Each lane reads its
+// slot's kv_pos and kv_valid a sub-tile ahead; a sub-tile with no unmasked slot is skipped whole
 // (warp-uniform, an exact skip — the kernel reads kv_pos rather than
 // assuming slot == position, so the caller may pass any positions), so a
 // split past the valid slots reads no K/V and contributes the empty state.
@@ -52,11 +55,14 @@ template <typename T, int DH, int kWarps = warps<T, DH>(), int kThreads = 32 * k
 __global__ void __launch_bounds__(kThreads) decode_attention_split(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
-    const int* __restrict__ kv_valid, T* __restrict__ out, int T_len, int KV, int G,
+    const int* __restrict__ kv_valid, T* __restrict__ out, int T_len, int KV, int G, int RG,
     int window, float softcap, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int R = G;  // the KV head's query rows
+  // blockIdx.y = KV head x row groups: this block's rows [r0, r0 + R) of
+  // the KV head's G query rows
+  const int n_rg = (G + RG - 1) / RG;
+  const int h = blockIdx.y / n_rg, r0 = (blockIdx.y - h * n_rg) * RG, b = blockIdx.z;
+  const int R = min(RG, G - r0);
   const split::Smem<T, DH, kWarps> sm(smem_raw, R, gridDim.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t lane_head = (size_t)b * KV + h;
@@ -84,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split(
     kp_next = pos_b[first + kThreads + lane];
     valid_next = valid_b[first + kThreads + lane];
   }
-  const size_t q0 = lane_head * R * DH;
+  const size_t q0 = (lane_head * G + r0) * DH;
   split::load_q<kMaxRowsDh>(sm, R, q, [&](int r) { return q0 + (size_t)r * DH; }, [&] {
     const bool live = attended(first + lane, kp, valid);
     if (__any_sync(0xffffffffu, live))
@@ -111,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split(
   }
 
   split::block_merge<kMaxPairs>(sm, R, acc);
-  T* ob = out + lane_head * R * DH;
+  T* ob = out + q0;
   split::cluster_merge(
       sm, R,
       [&](int c, int, float a, float l) { ob[c] = from_float<T>(a / (l == 0.f ? 1.f : l)); },
@@ -121,26 +127,26 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split(
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_pos,
                    const void* kv_pos, const void* kv_valid, void* out, int B, int T_len,
-                   int KV, int G, int splits, int window, float softcap, float scale,
+                   int KV, int G, int RG, int splits, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr int kWarps = warps<T, DH>();
   return split::launch_split<kWarps>(
-      decode_attention_split<T, DH>, splits, KV, B,
-      split::Smem<T, DH, kWarps>::bytes(G, splits), stream,
+      decode_attention_split<T, DH>, splits, KV * ((G + RG - 1) / RG), B,
+      split::Smem<T, DH, kWarps>::bytes(RG, splits), stream,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<const int*>(kv_valid), static_cast<T*>(out), T_len, KV, G, window,
+      static_cast<const int*>(kv_valid), static_cast<T*>(out), T_len, KV, G, RG, window,
       softcap, scale);
 }
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
                         const void* q_pos, const void* kv_pos, const void* kv_valid,
-                        void* out, int B, int T_len, int KV, int G, int splits, int window,
-                        float softcap, float scale, cudaStream_t stream) {
-#define REPRO_DECODE_CASE(D)                                                           \
-  case D:                                                                              \
-    return launch<T, D>(q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV, G, splits, \
+                        void* out, int B, int T_len, int KV, int G, int RG, int splits,
+                        int window, float softcap, float scale, cudaStream_t stream) {
+#define REPRO_DECODE_CASE(D)                                                               \
+  case D:                                                                                  \
+    return launch<T, D>(q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV, G, RG, splits, \
                         window, softcap, scale, stream);
   switch (Dh) {
     REPRO_DECODE_CASE(16)
@@ -158,23 +164,25 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
 }  // namespace repro_torch
 
 // Plain C entry point (bound with ctypes). Launches one cluster launch on
-// `stream` (grid (splits, KV, B), clusters of splits blocks), allocates
-// nothing, does not synchronise; returns the launch's error.
+// `stream` (grid (splits, KV * ceil(G / RG), B), clusters of splits
+// blocks), allocates nothing, does not synchronise; returns the launch's
+// error. RG is the query rows per block (RG * Dh <= kMaxRowsDh).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* kv_pos,
                                       const void* kv_valid, void* out, int B, int T_len,
-                                      int KV, int G, int Dh, int splits, int window,
+                                      int KV, int G, int RG, int Dh, int splits, int window,
                                       float softcap, float scale, int dtype, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || T_len <= 0 || G * Dh > kMaxRowsDh || splits < 1 ||
+  if (B <= 0 || T_len <= 0 || RG < 1 || RG > G || RG * Dh > kMaxRowsDh || splits < 1 ||
       splits > split::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
     return (int)dispatch_dh<__nv_bfloat16>(Dh, q, k, v, q_pos, kv_pos, kv_valid, out, B,
-                                           T_len, KV, G, splits, window, softcap, scale, s);
+                                           T_len, KV, G, RG, splits, window, softcap, scale,
+                                           s);
   if (dtype == kFloat32)
     return (int)dispatch_dh<float>(Dh, q, k, v, q_pos, kv_pos, kv_valid, out, B, T_len, KV,
-                                   G, splits, window, softcap, scale, s);
+                                   G, RG, splits, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,12 @@
 //
 // Design: a split walk (csrc/split_decode.cuh), as K5's. One cluster of
 // `splits` blocks of 8 warps (4 for f32 rows over 256 bytes) per (lane,
-// KV head); the R = G query rows of the KV head go together. The host
+// KV head, row group); the R <= RG query rows of a row group go together.
+// A block holds at most kMaxRowsDh / Dh rows (a lane's 2 * kMaxPairs f32
+// accumulators), so a KV head whose G * Dh exceeds that (chatglm3's
+// 16 x 128 = 2048) is cut into ceil(G / RG) row groups, each its own
+// cluster: K/V is then read once per row group, the second time mostly
+// from L2 (kernels/paged_attention/kernel.py row_groups picks RG). The host
 // picks `splits` from B * KV and the widest walk (MP - start) * ps
 // (kernels/paged_attention/kernel.py paged_plan): 16 clusters of 8 at
 // B = 1 for the paper model, 128 of 1 at B = 8. Each block takes its split
@@ -63,11 +68,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split(
     const int* __restrict__ table, const int* __restrict__ bound,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
     const float* __restrict__ acc0, const float* __restrict__ m0,
-    const float* __restrict__ l0, T* __restrict__ out, int KV, int G, int P, int ps, int MP,
-    int window, int start, float softcap, float scale) {
+    const float* __restrict__ l0, T* __restrict__ out, int KV, int G, int RG, int P, int ps,
+    int MP, int window, int start, float softcap, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int R = G;  // the KV head's query rows
+  // blockIdx.y = KV head x row groups: this block's rows [r0, r0 + R) of
+  // the KV head's G query rows
+  const int n_rg = (G + RG - 1) / RG;
+  const int h = blockIdx.y / n_rg, r0 = (blockIdx.y - h * n_rg) * RG, b = blockIdx.z;
+  const int R = min(RG, G - r0);
   const split::Smem<T, DH, kWarps> sm(smem_raw, R, gridDim.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t lane_head = (size_t)b * KV + h;
@@ -102,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split(
     phys_next = tbl[(first + kThreads + lane) / ps];
     kp_next = pos_b[first + kThreads + lane];
   }
-  const size_t q0 = lane_head * R * DH;
+  const size_t q0 = (lane_head * G + r0) * DH;
   split::load_q<kMaxRowsDh>(sm, R, q, [&](int r) { return q0 + (size_t)r * DH; }, [&] {
     const bool live = attended(first + lane, phys, kp);
     if (__any_sync(0xffffffffu, live))
@@ -131,8 +139,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split(
 
   split::block_merge<kMaxPairs>(sm, R, acc);
   const split::Seed seed{acc0 != nullptr ? acc0 + q0 : nullptr,
-                         m0 != nullptr ? m0 + lane_head * R : nullptr,
-                         l0 != nullptr ? l0 + lane_head * R : nullptr};
+                         m0 != nullptr ? m0 + lane_head * G + r0 : nullptr,
+                         l0 != nullptr ? l0 + lane_head * G + r0 : nullptr};
   T* ob = out + q0;
   split::cluster_merge(
       sm, R, seed,
@@ -143,31 +151,33 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split(
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const void* table,
                    const void* bound, const void* q_pos, const void* kv_pos, const void* acc0,
-                   const void* m0, const void* l0, void* out, int B, int KV, int G, int P,
-                   int ps, int MP, int splits, int window, int start, float softcap,
+                   const void* m0, const void* l0, void* out, int B, int KV, int G, int RG,
+                   int P, int ps, int MP, int splits, int window, int start, float softcap,
                    float scale, cudaStream_t stream) {
   constexpr int kWarps = warps<T, DH>();
   return split::launch_split<kWarps>(
-      paged_attention_split<T, DH>, splits, KV, B, split::Smem<T, DH, kWarps>::bytes(G, splits),
+      paged_attention_split<T, DH>, splits, KV * ((G + RG - 1) / RG), B,
+      split::Smem<T, DH, kWarps>::bytes(RG, splits),
       stream, static_cast<const T*>(q), static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), static_cast<const int*>(table),
       static_cast<const int*>(bound), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<const float*>(acc0),
       static_cast<const float*>(m0), static_cast<const float*>(l0), static_cast<T*>(out), KV,
-      G, P, ps, MP, window, start, softcap, scale);
+      G, RG, P, ps, MP, window, start, softcap, scale);
 }
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* pool_k, const void* pool_v,
                         const void* table, const void* bound, const void* q_pos,
                         const void* kv_pos, const void* acc0, const void* m0, const void* l0,
-                        void* out, int B, int KV, int G, int P, int ps, int MP, int splits,
-                        int window, int start, float softcap, float scale,
+                        void* out, int B, int KV, int G, int RG, int P, int ps, int MP,
+                        int splits, int window, int start, float softcap, float scale,
                         cudaStream_t stream) {
 #define REPRO_PAGED_CASE(D)                                                                 \
   case D:                                                                                   \
     return launch<T, D>(q, pool_k, pool_v, table, bound, q_pos, kv_pos, acc0, m0, l0, out, \
-                        B, KV, G, P, ps, MP, splits, window, start, softcap, scale, stream);
+                        B, KV, G, RG, P, ps, MP, splits, window, start, softcap, scale,     \
+                        stream);
   switch (Dh) {
     REPRO_PAGED_CASE(16)
     REPRO_PAGED_CASE(32)
@@ -183,17 +193,20 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* pool_k, const void* p
 }  // namespace repro_torch
 
 // Plain C entry point (bound with ctypes). Launches one cluster launch on
-// `stream` (grid (splits, KV, B), clusters of splits blocks), allocates
-// nothing, does not synchronise; returns the launch's error. acc0/m0/l0 are
-// null (start from the empty state) or all three set.
+// `stream` (grid (splits, KV * ceil(G / RG), B), clusters of splits
+// blocks), allocates nothing, does not synchronise; returns the launch's
+// error. RG is the query rows per block (RG * Dh <= kMaxRowsDh). acc0/m0/l0
+// are null (start from the empty state) or all three set.
 extern "C" int repro_paged_attention(const void* q, const void* pool_k, const void* pool_v,
                                      const void* table, const void* bound, const void* q_pos,
                                      const void* kv_pos, const void* acc0, const void* m0,
-                                     const void* l0, void* out, int B, int KV, int G, int Dh,
-                                     int P, int ps, int MP, int splits, int window, int start,
-                                     float softcap, float scale, int dtype, void* stream) {
+                                     const void* l0, void* out, int B, int KV, int G, int RG,
+                                     int Dh, int P, int ps, int MP, int splits, int window,
+                                     int start, float softcap, float scale, int dtype,
+                                     void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || G * Dh > kMaxRowsDh || splits < 1 || splits > split::kMaxSplits)
+  if (B <= 0 || RG < 1 || RG > G || RG * Dh > kMaxRowsDh || splits < 1 ||
+      splits > split::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (start < 0 || start >= MP) return (int)cudaErrorInvalidValue;
   if ((acc0 == nullptr) != (m0 == nullptr) || (m0 == nullptr) != (l0 == nullptr))
@@ -201,11 +214,11 @@ extern "C" int repro_paged_attention(const void* q, const void* pool_k, const vo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
     return (int)dispatch_dh<__nv_bfloat16>(Dh, q, pool_k, pool_v, table, bound, q_pos, kv_pos,
-                                           acc0, m0, l0, out, B, KV, G, P, ps, MP, splits,
-                                           window, start, softcap, scale, s);
+                                           acc0, m0, l0, out, B, KV, G, RG, P, ps, MP,
+                                           splits, window, start, softcap, scale, s);
   if (dtype == kFloat32)
     return (int)dispatch_dh<float>(Dh, q, pool_k, pool_v, table, bound, q_pos, kv_pos, acc0,
-                                   m0, l0, out, B, KV, G, P, ps, MP, splits, window, start,
-                                   softcap, scale, s);
+                                   m0, l0, out, B, KV, G, RG, P, ps, MP, splits, window,
+                                   start, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

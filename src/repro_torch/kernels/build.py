@@ -112,11 +112,11 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every C entry point's argument types: c_void_p for each pointer and the
 # stream, c_int for each int, c_float for each float; each returns an int
 ARGTYPES = {
-    "repro_paged_attention": [_VP] * 11 + [_I] * 10 + [_F, _F, _I, _VP],
+    "repro_paged_attention": [_VP] * 11 + [_I] * 11 + [_F, _F, _I, _VP],
     "repro_chunked_prefill": [_VP] * 7 + [_I] * 9 + [_F, _F, _I, _VP],
     "repro_shared_prefix": [_VP] * 8 + [_I] * 10 + [_F, _F, _I, _VP],
     "repro_flash_attention": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
-    "repro_decode_attention": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
+    "repro_decode_attention": [_VP] * 7 + [_I] * 8 + [_F, _F, _I, _VP],
     "repro_ssd_chunk": [_VP] * 8 + [_I] * 7 + [_VP],
 }
 

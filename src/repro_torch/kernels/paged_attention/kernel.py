@@ -27,6 +27,19 @@ MAX_SPLITS = 8        # the portable thread-block cluster size
 TARGET_BLOCKS = 128   # a wave of the H100's 132 SMs, as power-of-two grids reach it
 K2_MAX_LANES = 64     # lanes per K2 block (shared_prefix.cu kMaxLanes)
 K2_MAX_ROWS_DH = 2048  # lanes * G * Dh per K2 block (kMaxRowsDh)
+BLOCK_ROWS_DH = 1024  # query rows * Dh per K1 / K5 block (their kMaxRowsDh)
+MAX_G_DH = 2048       # G * Dh that K1 and K5 take (two row groups at most)
+
+
+def row_groups(g: int, dh: int) -> Tuple[int, int]:
+    """K1's and K5's cut of a KV head's G query rows: ``(groups, rows per
+    group)``, the fewest groups of at most ``BLOCK_ROWS_DH / dh`` rows each.
+    Each group is its own cluster of the launch and reads the KV head's
+    K/V rows itself."""
+    n = 1
+    while -(-g // n) * dh > BLOCK_ROWS_DH:
+        n += 1
+    return n, -(-g // n)
 
 
 def plan_splits(blocks: int, n_tokens: int) -> int:
@@ -60,14 +73,15 @@ def shared_prefix_plan(b: int, kvh: int, g: int, dh: int,
     return lanes, splits, (splits, kvh, tiles)
 
 
-def paged_plan(b: int, kvh: int, mp: int, ps: int,
-               start: int = 0) -> Tuple[int, Tuple[int, int, int]]:
-    """K1's launch: ``(splits, grid)``, the grid ``(splits, KV, B)`` with
-    clusters of ``(splits, 1, 1)``. The host sees only the widest walk a
-    lane can have, ``(MP - start) * ps`` tokens; each block cuts its own
-    lane's range on the device (``paged_split_ranges``)."""
-    splits = plan_splits(b * kvh, (mp - start) * ps)
-    return splits, (splits, kvh, b)
+def paged_plan(b: int, kvh: int, mp: int, ps: int, start: int = 0,
+               n_groups: int = 1) -> Tuple[int, Tuple[int, int, int]]:
+    """K1's launch: ``(splits, grid)``, the grid ``(splits, KV x n_groups,
+    B)`` with clusters of ``(splits, 1, 1)`` (``n_groups`` row groups per KV
+    head, ``row_groups``). The host sees only the widest walk a lane can
+    have, ``(MP - start) * ps`` tokens; each block cuts its own lane's range
+    on the device (``paged_split_ranges``)."""
+    splits = plan_splits(b * kvh * n_groups, (mp - start) * ps)
+    return splits, (splits, kvh * n_groups, b)
 
 
 def paged_lane_range(q_pos: int, bound: int, ps: int, start: int = 0,
@@ -125,8 +139,9 @@ def paged_attention_cuda(
     init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Launch K1 -> (B, KV, G, Dh) in q's dtype: one cluster launch, planned
-    by ``paged_plan``. With ``start``/``init`` it continues the
-    shared-prefix pass's f32 ``(acc, m, l)`` over pages ``[start, bound)``."""
+    by ``paged_plan`` over ``row_groups(G, Dh)``. With ``start``/``init`` it
+    continues the shared-prefix pass's f32 ``(acc, m, l)`` over pages
+    ``[start, bound)``."""
     b, kvh, g, dh = q.shape
     p, ps = pool_k.shape[0], pool_k.shape[1]
     mp = page_table.shape[1]
@@ -138,7 +153,7 @@ def paged_attention_cuda(
         ("kv_pos", kv_pos, (b, mp * ps)),
     ))
     require(WHERE, b > 0, "empty batch")
-    require(WHERE, g * dh <= 1024, f"G * Dh = {g * dh} exceeds 1024")
+    require(WHERE, g * dh <= MAX_G_DH, f"G * Dh = {g * dh} exceeds {MAX_G_DH}")
     require(WHERE, 0 <= start < mp, f"start {start} not in [0, {mp})")
     seeds = (None, None, None)
     if init is not None:
@@ -149,13 +164,14 @@ def paged_attention_cuda(
                     f"{name} must be float32 on q's device")
             require(WHERE, tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
             require(WHERE, t.is_contiguous(), f"{name} must be contiguous")
-    splits, _ = paged_plan(b, kvh, mp, ps, start)
+    n_groups, rows = row_groups(g, dh)
+    splits, _ = paged_plan(b, kvh, mp, ps, start, n_groups)
     out = torch.empty_like(q)
     err = load_library().repro_paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         page_bound.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         *(None if t is None else t.data_ptr() for t in seeds), out.data_ptr(),
-        b, kvh, g, dh, p, ps, mp, splits, int(window), int(start), float(softcap),
+        b, kvh, g, rows, dh, p, ps, mp, splits, int(window), int(start), float(softcap),
         1.0 / (dh ** 0.5), DTYPE_CODES[q.dtype], stream_ptr(q),
     )
     check(err, "repro_paged_attention")

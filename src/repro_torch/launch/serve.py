@@ -8,6 +8,7 @@ flags and one more, ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-qwen1.5-0.5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m  # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --device cpu
 
 Without ``--arch`` every node runs the analytic ``EchoLLMService`` (no
 device work). With ``--arch`` every node gets its own ``TorchLLMService``

@@ -26,9 +26,10 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .layers import Params, init_normal, apply_rope, dtype_of, softcap
+from .layers import Params, apply_rope, dtype_of, init_normal, pos1d, softcap
 
 NEG_INF = -1e30
+
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Params:
@@ -97,7 +98,7 @@ def _sdpa_reference(
 def attention_forward(
     p: Params,
     x: torch.Tensor,                       # (B,S,D)
-    positions: torch.Tensor,               # (B,S)
+    positions: torch.Tensor,               # (B,S), or (3,B,S) for M-RoPE
     cfg: ModelConfig,
     window: int = 0,
     seq_valid: Optional[torch.Tensor] = None,  # (B,S) bool
@@ -107,7 +108,8 @@ def attention_forward(
     ``return_kv``, also returns the rotated K and V (for cache seeding).
     The kernel path is ``kernels.flash_attention`` (K4)."""
     q, k, v = qkv_project(p, x, positions, cfg)
-    b, s = positions.shape
+    q_pos = pos1d(positions)
+    b, s = q_pos.shape
     valid = (
         seq_valid if seq_valid is not None
         else torch.ones((b, s), dtype=torch.bool, device=x.device)
@@ -116,10 +118,10 @@ def attention_forward(
         from ..kernels.flash_attention import ops as flash_ops
 
         out = flash_ops.flash_attention(
-            q, k, v, positions, positions, valid, window=window, softcap=cfg.attn_softcap,
+            q, k, v, q_pos, q_pos, valid, window=window, softcap=cfg.attn_softcap,
         )
     else:
-        out = _sdpa_reference(q, k, v, positions, positions, valid, cfg, window)
+        out = _sdpa_reference(q, k, v, q_pos, q_pos, valid, cfg, window)
     out = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
     if return_kv:
         return out, k, v
@@ -154,7 +156,7 @@ def project_kv_step(
 def attention_decode(
     p: Params,
     x: torch.Tensor,           # (B,1,D) — the single new token
-    positions: torch.Tensor,   # (B,1)
+    positions: torch.Tensor,   # (B,1) or (3,B,1)
     k_cache: torch.Tensor,     # (B,T,KV,Dh) — already includes this token
     v_cache: torch.Tensor,
     kv_pos: torch.Tensor,      # (B,T) absolute positions per slot
@@ -162,27 +164,28 @@ def attention_decode(
     cfg: ModelConfig,
     window: int = 0,
 ) -> torch.Tensor:
-    """Single-step decode against a linear cache (full; ``kv_pos`` gives
-    each slot's position). The kernel path is ``kernels.decode_attention``
-    (K5)."""
+    """Single-step decode against a linear cache, full or ring (``kv_pos``
+    gives each slot's position, so a ring's slots need no order). The
+    kernel path is ``kernels.decode_attention`` (K5)."""
     b = x.shape[0]
+    q_pos = pos1d(positions)
     q = _project_q_step(p, x, positions, cfg)
     if cfg.attn_impl != "reference":
         from ..kernels.decode_attention import ops as decode_ops
 
         out = decode_ops.decode_attention(
-            q, k_cache, v_cache, positions, kv_pos, kv_valid,
+            q, k_cache, v_cache, q_pos, kv_pos, kv_valid,
             window=window, softcap=cfg.attn_softcap,
         )
     else:
-        out = _sdpa_reference(q, k_cache, v_cache, positions, kv_pos, kv_valid, cfg, window)
+        out = _sdpa_reference(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, cfg, window)
     return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
 def attention_decode_paged(
     p: Params,
     x: torch.Tensor,           # (B,1,D) — the single new token
-    positions: torch.Tensor,   # (B,1)
+    positions: torch.Tensor,   # (B,1) or (3,B,1)
     pool_k: torch.Tensor,      # (P, ps, KV, Dh) — shared page pool, one layer
     pool_v: torch.Tensor,
     page_table: torch.Tensor,  # (B, MP) physical page ids per lane
@@ -205,7 +208,7 @@ def attention_decode_paged(
         b = x.shape[0]
         q = _project_q_step(p, x, positions, cfg)
         out = paged_ops.paged_attention(
-            q, pool_k, pool_v, page_table, positions, kv_pos, shared_pages,
+            q, pool_k, pool_v, page_table, pos1d(positions), kv_pos, shared_pages,
             window=window, softcap=cfg.attn_softcap,
         )
         return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p["wo"]
@@ -220,7 +223,7 @@ def attention_decode_paged(
 def attention_append(
     p: Params,
     x: torch.Tensor,           # (B,S,D) — a chunk of new tokens
-    positions: torch.Tensor,   # (B,S) absolute positions, p0 + arange(S)
+    positions: torch.Tensor,   # (B,S) absolute positions, p0 + arange(S); (3,B,S) M-RoPE
     p0: int,                   # the chunk's first position, on the host
     k_cache: torch.Tensor,     # (B,T,KV,Dh) full cache (slot == position)
     v_cache: torch.Tensor,
@@ -237,6 +240,7 @@ def attention_append(
     from .cache import write_chunk
 
     b, s, _ = x.shape
+    q_pos = pos1d(positions)
     q, k, v = qkv_project(p, x, positions, cfg)
     write_chunk(k_cache, k, p0)
     write_chunk(v_cache, v, p0)
@@ -245,18 +249,18 @@ def attention_append(
         from ..kernels.flash_attention import ops as flash_ops
 
         out = flash_ops.flash_attention(
-            q, k_cache, v_cache, positions, kv_pos, kv_valid,
+            q, k_cache, v_cache, q_pos, kv_pos, kv_valid,
             window=window, softcap=cfg.attn_softcap,
         )
     else:
-        out = _sdpa_reference(q, k_cache, v_cache, positions, kv_pos, kv_valid, cfg, window)
+        out = _sdpa_reference(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, cfg, window)
     return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
 def attention_chunk_paged(
     p: Params,
     x: torch.Tensor,           # (B,S,D) — a chunk of prompt tokens
-    positions: torch.Tensor,   # (B,S) absolute positions
+    positions: torch.Tensor,   # (B,S) absolute positions, or (3,B,S) for M-RoPE
     valid: torch.Tensor,       # (B,S) bool — False for bucket padding
     pool_k: torch.Tensor,      # (P, ps, KV, Dh) — shared page pool, one layer
     pool_v: torch.Tensor,
@@ -282,6 +286,7 @@ def attention_chunk_paged(
     b, s, _ = x.shape
     ps = pool_k.shape[1]
     q, k, v = qkv_project(p, x, positions, cfg)
+    positions = pos1d(positions)
     ck = cv = None
     if cfg.attn_impl == "reference":
         # the linear view must be taken before this chunk's pool write

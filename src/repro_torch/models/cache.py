@@ -5,7 +5,11 @@ Three kinds:
 
 - the full cache ``{"k", "v": (L, B, T, KV, Dh), "kv_pos": (B, T)}`` of the
   dense route, one per layer group, stacked over the group's layers, with
-  slot index == absolute position (``kv_pos`` -1 = empty);
+  slot index == absolute position (``kv_pos`` -1 = empty); a ring cache
+  (gemma2's local layers, the sliding-window variant) has the same layout
+  with ``T`` = the window's slots and slot = position % T, holding the
+  last T positions (attention masks by ``kv_pos``, so both share one
+  rule);
 - the paged pool of the paged route;
 - the SSM state ``{"h": (L, B, H, P, N), "conv": (L, B, K, conv_dim)}`` of
   the mamba layers (the zamba group keeps one beside its shared block's
@@ -89,27 +93,31 @@ def clone_caches(caches: List[Cache]) -> List[Cache]:
     return [{name: t.clone() for name, t in c.items()} for c in caches]
 
 
+def _step_slot(pos: torch.Tensor, t: int, ring: bool) -> torch.Tensor:
+    """A decode token's slot: ``pos % T`` in a ring, else ``min(pos, T - 1)``
+    (JAX clamps a full cache, it does not drop)."""
+    return (torch.remainder(pos, t) if ring else torch.clamp(pos, max=t - 1)).long()
+
+
 def write_step(
     cache_k: torch.Tensor,   # (B, T, KV, Dh) one layer
     cache_v: torch.Tensor,
     k_new: torch.Tensor,     # (B, 1, KV, Dh)
     v_new: torch.Tensor,
     pos: torch.Tensor,       # (B,) absolute position of the new token
+    ring: bool = False,
 ) -> None:
-    """Write one decode token's K/V at slot ``min(pos, T - 1)``, in place —
-    JAX clamps here (full cache), it does not drop."""
-    b, t = cache_k.shape[0], cache_k.shape[1]
-    slot = torch.clamp(pos, max=t - 1).long()
-    bidx = torch.arange(b, device=cache_k.device)
+    """Write one decode token's K/V at its slot (``_step_slot``), in place."""
+    slot = _step_slot(pos, cache_k.shape[1], ring)
+    bidx = torch.arange(cache_k.shape[0], device=cache_k.device)
     cache_k[bidx, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[bidx, slot] = v_new[:, 0].to(cache_v.dtype)
 
 
-def update_kv_pos(kv_pos: torch.Tensor, pos: torch.Tensor) -> None:
-    """kv_pos[b, min(pos[b], T - 1)] = pos[b], in place (clamped, as JAX)."""
+def update_kv_pos(kv_pos: torch.Tensor, pos: torch.Tensor, ring: bool = False) -> None:
+    """kv_pos[b, slot of pos[b]] = pos[b], in place (``_step_slot``)."""
     b, t = kv_pos.shape
-    slot = torch.clamp(pos, max=t - 1).long()
-    kv_pos[torch.arange(b, device=kv_pos.device), slot] = pos.to(kv_pos.dtype)
+    kv_pos[torch.arange(b, device=kv_pos.device), _step_slot(pos, t, ring)] = pos.to(kv_pos.dtype)
 
 
 def _kept(p0: int, s: int, t: int) -> int:
@@ -164,13 +172,33 @@ def trim_cache_prefix(caches: List[Cache], n_valid: int) -> List[Cache]:
 
 
 def prefill_kv_pos(
-    batch: int, slots: int, seq_len: int, device: Optional[torch.device] = None
+    batch: int, slots: int, seq_len: int, device: Optional[torch.device] = None,
+    ring: bool = False,
 ) -> torch.Tensor:
-    """kv_pos after prefilling ``seq_len`` tokens into a full cache of
-    ``slots`` slots."""
+    """kv_pos after prefilling ``seq_len`` tokens into a cache of ``slots``
+    slots: slot == position, or, for a ring shorter than the sequence, the
+    last ``slots`` positions at slot = position % slots."""
     j = torch.arange(slots, dtype=torch.int32, device=device)
-    pos = torch.where(j < seq_len, j, torch.full_like(j, -1))
+    if not ring or seq_len <= slots:
+        pos = torch.where(j < seq_len, j, torch.full_like(j, -1))
+    else:
+        base = seq_len - slots
+        pos = base + torch.remainder(j - base, slots)
     return pos[None, :].expand(batch, slots).clone()
+
+
+def ring_from_prefill(k: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's keys (or values) (B, S, KV, Dh) packed into a ring of
+    ``window`` slots (slot = position % window): the last ``window``
+    positions, or, for S <= window, the S positions and zero slots after
+    them."""
+    s = k.shape[1]
+    j = torch.arange(window, device=k.device)
+    if s <= window:
+        out = k[:, torch.clamp(j, max=s - 1)]
+        return torch.where((j < s)[None, :, None, None], out, torch.zeros_like(out))
+    base = s - window
+    return k[:, base + torch.remainder(j - base, window)]
 
 
 # ---------------------------------------------------------------------------

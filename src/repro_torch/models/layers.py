@@ -8,7 +8,7 @@ pytrees (matrices stored ``(in, out)``, norms stored as ``weight - 1``), so
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,8 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE — standard only in this slice
+# RoPE — standard, ChatGLM 2D (rotary on the first half of the head) and
+# M-RoPE (three position streams), in JAX's half-split form
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(d_rot: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -66,22 +67,66 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def rope_standard(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, Dh); positions: (B, S). Rotates in f32, then casts."""
-    d = x.shape[-1]
-    freqs = _rope_freqs(d, theta, x.device)
-    ang = positions[..., None].float() * freqs               # (B, S, d/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, d_rot) rotated by angles ang (B, S, d_rot/2), in f32."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _apply_rotary(x.float(), cos, sin).to(x.dtype)
 
 
+def rope_standard(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S). Rotates in f32, then casts."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def rope_chatglm2d(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """ChatGLM's 2D RoPE: the first half of the head dims is rotated (with
+    frequencies over that half), the second half passes through."""
+    d_rot = x.shape[-1] // 2
+    freqs = _rope_freqs(d_rot, theta, x.device)
+    xr = _rotate(x[..., :d_rot], positions[..., None].float() * freqs)
+    return torch.cat([xr, x[..., d_rot:]], dim=-1)
+
+
+def rope_mrope(
+    x: torch.Tensor, positions3: torch.Tensor, theta: float, sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE: the rotary frequencies split into (temporal,
+    height, width) sections, each rotated by its own position stream.
+    x: (B, S, H, Dh); positions3: (3, B, S)."""
+    d = x.shape[-1]
+    assert sum(sections) * 2 == d, (sections, d)
+    f_parts = torch.split(_rope_freqs(d, theta, x.device), list(sections))
+    ang = torch.cat(
+        [positions3[i][..., None].float() * f_parts[i] for i in range(3)], dim=-1
+    )                                                       # (B, S, d/2)
+    return _rotate(x, ang)
+
+
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """positions: (B, S) for standard and chatglm2d; (3, B, S) for mrope."""
     if cfg.rope_style == "standard":
         return rope_standard(x, positions, cfg.rope_theta)
-    raise NotImplementedError(
-        f"rope_style={cfg.rope_style!r} is not ported yet "
-        "(ROADMAP, Queue 1 item 8)"
-    )
+    if cfg.rope_style == "chatglm2d":
+        return rope_chatglm2d(x, positions, cfg.rope_theta)
+    if cfg.rope_style == "mrope":
+        return rope_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    raise ValueError(cfg.rope_style)
+
+
+def pos1d(positions: torch.Tensor) -> torch.Tensor:
+    """The positions masks and caches use: (B, S) as given, or stream 0 of
+    M-RoPE's (3, B, S) (its temporal stream, as in JAX)."""
+    return positions[0] if positions.dim() == 3 else positions
+
+
+def text_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Rope positions of text tokens at ``pos`` (B, S): ``pos`` itself, or
+    for mrope the one stream broadcast to all three (3, B, S), as JAX's
+    text paths do (where M-RoPE equals standard RoPE)."""
+    if cfg.rope_style == "mrope":
+        return pos[None].expand(3, *pos.shape)
+    return pos
 
 
 # ---------------------------------------------------------------------------

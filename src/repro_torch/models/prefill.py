@@ -1,9 +1,10 @@
 """Prefill — the PyTorch counterpart of ``repro.models.prefill``: the full
-prefill that seeds full caches and SSM state (``prefill``; dense, mamba and
-zamba groups), the chunk append into existing full caches
-(``prefill_append``, session-level KV reuse on the dense route), and the
-paged route's chunked prefill straight into KV pages
-(``prefill_chunk_paged``); the last two for dense and moe groups only.
+prefill that seeds full caches, ring caches and SSM state (``prefill``;
+dense, moe, gemma_pair, mamba and zamba groups), the chunk append into
+existing full caches (``prefill_append``, session-level KV reuse on the
+dense route), and the paged route's chunked prefill straight into KV
+pages (``prefill_chunk_paged``); the last two for full-cache dense and moe
+groups only.
 Caches and pools are written in place. A moe layer's experts see every row
 of the call — bucket padding included — as in JAX, so the same rows fill
 the experts' capacity."""
@@ -15,11 +16,32 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .attention import attention_append, attention_chunk_paged, attention_forward
-from .cache import Cache, append_kv_pos, gather_pages_stacked, prefill_kv_pos, trim_kv_pos
+from .cache import (
+    Cache,
+    append_kv_pos,
+    gather_pages_stacked,
+    prefill_kv_pos,
+    ring_from_prefill,
+    trim_kv_pos,
+)
 from .config import ModelConfig
-from .layers import Params, dtype_of, embed_tokens, mlp_forward, rms_norm, unembed
+from .layers import (
+    Params,
+    dtype_of,
+    embed_tokens,
+    mlp_forward,
+    rms_norm,
+    text_positions,
+    unembed,
+)
 from .moe import moe_forward
-from .transformer import _mamba_block_full, layer_groups
+from .transformer import (
+    _mamba_block_full,
+    default_positions,
+    embed_inputs,
+    layer_groups,
+    pair_windows,
+)
 
 
 def supports_append(cfg: ModelConfig) -> bool:
@@ -60,43 +82,73 @@ def _moe_block_prefill(
     return x + m, k, v
 
 
-def _alloc_kv(n_layers: int, b: int, max_len: int, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    shape = (n_layers, b, max_len) + tuple(k.shape[2:])
-    return (torch.zeros(shape, dtype=k.dtype, device=k.device),
-            torch.zeros(shape, dtype=k.dtype, device=k.device))
+def _pack_attn_cache(
+    ks: List[torch.Tensor], vs: List[torch.Tensor], slots: int, ring: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A group's per-layer prefill K/V (B, S, KV, Dh) placed into a cache of
+    ``slots`` slots (``repro.models.prefill._pack_attn_cache``): packed into
+    ring order when ``ring`` and the sequence is longer than the ring
+    (``ring_from_prefill``), else at slot == position with the rest zero.
+    Returns (k, v (L, B, slots, KV, Dh), kv_pos (B, slots))."""
+    b, s = ks[0].shape[:2]
+    dev = ks[0].device
+    packed = ring and slots < s
+    if not packed and slots < s:
+        raise ValueError(f"prefill of {s} tokens into {slots} slots")
+    shape = (len(ks), b, slots) + tuple(ks[0].shape[2:])
+    ck = torch.zeros(shape, dtype=ks[0].dtype, device=dev)
+    cv = torch.zeros(shape, dtype=vs[0].dtype, device=dev)
+    for i, (k, v) in enumerate(zip(ks, vs)):
+        if packed:
+            ck[i], cv[i] = ring_from_prefill(k, slots), ring_from_prefill(v, slots)
+        else:
+            ck[i, :, :s], cv[i, :, :s] = k, v
+    return ck, cv, prefill_kv_pos(b, slots, s, dev, packed)
 
 
 def prefill(
     params: Dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,                       # (B,S)
+    tokens: torch.Tensor,                         # (B,S)
     max_len: int,
-    true_len: Optional[torch.Tensor] = None,    # (B,) real lengths (bucketed input)
+    positions: Optional[torch.Tensor] = None,     # (B,S), or (3,B,S) for mrope
+    patch_embeds: Optional[torch.Tensor] = None,  # (B,P,D) VLM stub frontend
+    seq_valid: Optional[torch.Tensor] = None,     # (B,S) bool
+    true_len: Optional[torch.Tensor] = None,      # (B,) real lengths (bucketed input)
 ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
-    """Full prefill of positions 0..S-1 into fresh caches
+    """Full prefill of a sequence into fresh caches
     (``repro.models.prefill.prefill``): returns (last-position logits
-    (B,V), caches, next_pos (B,)). Attention K/V fill slots [0, S) of
-    ``max_len``-slot full caches and the rest stay zero; a mamba layer's
-    cache is its final SSM state and conv window. With ``true_len`` the
-    input is right-padded to a bucket length and logits/next_pos refer to
-    position ``true_len - 1``. As in JAX, the padding is masked out of
-    attention, and a dense group's kv_pos is valid below ``true_len`` only;
-    but a mamba layer runs its SSM over the padded rows too (so its state
-    has absorbed them), and a zamba group's kv_pos is not trimmed (its
-    padded slots lie after every decode query and are overwritten before a
-    query reaches them). With the kernels, attention is K4 and every mamba
-    layer's SSD is K6."""
-    if cfg.attn_variant != "full":
-        raise NotImplementedError(f"prefill requires full caches ({cfg.name})")
+    (B,V), caches, next_pos (B,)). ``positions`` default to 0..S-1 (every
+    M-RoPE stream the same), and a VLM's ``patch_embeds`` overwrite the
+    first rows of the embeddings, as in ``forward_full``. Attention K/V
+    fill slots [0, S) of ``max_len``-slot full caches and the rest stay
+    zero; a ring cache (a gemma pair's local layers, and every attention
+    layer of the sliding-window variant: the window's slots, at most
+    ``max_len``) keeps the last positions at slot = position % slots
+    (``_pack_attn_cache``); a mamba layer's cache is its final SSM state
+    and conv window. With ``true_len`` the input is right-padded to a
+    bucket length (``seq_valid`` is then ``arange(S) < true_len``) and
+    logits/next_pos refer to position ``true_len - 1``. As in JAX, the
+    padding is masked out of attention, and a dense or moe group's kv_pos
+    is valid below ``true_len`` only (such a group needs full caches); but
+    a mamba layer runs its SSM over the padded rows too (so its state has
+    absorbed them), and the kv_pos of a zamba group and of a gemma pair is
+    not trimmed: their padded slots lie after every decode query and are
+    overwritten before a query reaches them, but a gemma local ring whose
+    padded length exceeds the window has kept padded positions in place of
+    real ones (ROADMAP, Queue 3 R7). With the kernels, attention is K4 and
+    every mamba layer's SSD is K6."""
     groups = layer_groups(cfg)
     b, s = tokens.shape
     dev = tokens.device
-    if s > max_len and any(spec.kind != "mamba" for spec in groups):
-        raise ValueError(f"prefill of {s} tokens into {max_len} slots")
     idx = torch.arange(s, dtype=torch.int32, device=dev)
-    seq_valid = idx[None, :] < true_len[:, None] if true_len is not None else None
-    positions = idx[None].expand(b, s)
-    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    if true_len is not None:
+        seq_valid = idx[None, :] < true_len[:, None]
+    if positions is None:
+        positions = default_positions(cfg, b, s, dev)
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    sw = cfg.sliding_window or 8192
+    ring = cfg.attn_variant == "sliding_window"
     caches: List[Cache] = []
     for spec, gp in zip(groups, params["groups"]):
         if spec.kind == "mamba":
@@ -108,36 +160,54 @@ def prefill(
             caches.append({"h": torch.stack(hs), "conv": torch.stack(convs)})
             continue
         if spec.kind == "zamba":
-            hs, convs = [], []
-            ck = cv = None
-            for g, group in enumerate(gp):
+            hs, convs, ks, vs = [], [], [], []
+            for group in gp:
                 for bp in group:
                     x, final, conv = _mamba_block_full(bp, x, cfg)
                     hs.append(final)
                     convs.append(conv)
                 x, k, v = _dense_block_prefill(
-                    params["shared_attn"], x, positions, cfg, 0, seq_valid
+                    params["shared_attn"], x, positions, cfg, sw if ring else 0, seq_valid
                 )
-                if ck is None:
-                    ck, cv = _alloc_kv(len(gp), b, max_len, k)
-                ck[g, :, :s] = k
-                cv[g, :, :s] = v
+                ks.append(k)
+                vs.append(v)
+            ck, cv, kv_pos = _pack_attn_cache(ks, vs, min(sw, max_len) if ring else max_len,
+                                              ring)
             caches.append({
                 "ssm": {"h": torch.stack(hs), "conv": torch.stack(convs)},
-                "attn": {"k": ck, "v": cv, "kv_pos": prefill_kv_pos(b, max_len, s, dev)},
+                "attn": {"k": ck, "v": cv, "kv_pos": kv_pos},
+            })
+            continue
+        if spec.kind == "gemma_pair":
+            local_w, global_w = pair_windows(cfg)
+            lks, lvs, gks, gvs = [], [], [], []
+            for bp in gp:
+                x, k, v = _dense_block_prefill(bp["local"], x, positions, cfg, local_w,
+                                               seq_valid)
+                lks.append(k)
+                lvs.append(v)
+                x, k, v = _dense_block_prefill(bp["global"], x, positions, cfg, global_w,
+                                               seq_valid)
+                gks.append(k)
+                gvs.append(v)
+            lck, lcv, l_pos = _pack_attn_cache(lks, lvs, min(cfg.sliding_window, max_len), True)
+            gck, gcv, g_pos = _pack_attn_cache(gks, gvs, min(sw, max_len) if ring else max_len,
+                                               ring)
+            caches.append({
+                "local": {"k": lck, "v": lcv, "kv_pos": l_pos},
+                "global": {"k": gck, "v": gcv, "kv_pos": g_pos},
             })
             continue
         w = cfg.window_for_layer(0)
         block = _dense_block_prefill if spec.kind == "dense" else _moe_block_prefill
-        ck = cv = None
-        for i, bp in enumerate(gp):
+        ks, vs = [], []
+        for bp in gp:
             x, k, v = block(bp, x, positions, cfg, w, seq_valid)
-            if ck is None:
-                ck, cv = _alloc_kv(len(gp), b, max_len, k)
-            ck[i, :, :s] = k
-            cv[i, :, :s] = v
-        kv_pos = prefill_kv_pos(b, max_len, s, dev)
+            ks.append(k)
+            vs.append(v)
+        ck, cv, kv_pos = _pack_attn_cache(ks, vs, min(sw, max_len) if ring else max_len, ring)
         if true_len is not None:
+            assert not ring, "bucketed prefill needs full caches"
             kv_pos = trim_kv_pos(kv_pos, true_len)
         caches.append({"k": ck, "v": cv, "kv_pos": kv_pos})
     bi = torch.arange(b, device=dev)
@@ -202,6 +272,7 @@ def prefill_append(
         idx[None, :] < true_len[:, None] if true_len is not None
         else torch.ones((b, s), dtype=torch.bool, device=dev)
     )
+    positions = text_positions(cfg, q_pos)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
         append_kv_pos(cache["kv_pos"], p0, valid)
@@ -209,7 +280,7 @@ def prefill_append(
         block = _dense_block_append if spec.kind == "dense" else _moe_block_append
         for i, bp in enumerate(gp):
             x = block(
-                bp, x, q_pos, p0, cache["k"][i], cache["v"][i], cache["kv_pos"], cfg, w,
+                bp, x, positions, p0, cache["k"][i], cache["v"][i], cache["kv_pos"], cfg, w,
             )
     n_new = (
         true_len.to(torch.int32) if true_len is not None
@@ -278,6 +349,7 @@ def prefill_chunk_paged(
     true_len = true_len.to(torch.int32)
     q_pos = p0[:, None] + idx[None, :]                       # (B, S)
     valid = idx[None, :] < true_len[:, None]
+    positions = text_positions(cfg, q_pos)
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     use_kernel = cfg.attn_impl != "reference"
     for spec, gp, pool in zip(layer_groups(cfg), params["groups"], pools):
@@ -286,7 +358,7 @@ def prefill_chunk_paged(
             lin_k, lin_v = gather_pages_stacked(pool["k"], pool["v"], page_table)
         for i, bp in enumerate(gp):
             x = block(
-                bp, x, q_pos, valid, pool["k"][i], pool["v"][i], page_table, p0, true_len,
+                bp, x, positions, valid, pool["k"][i], pool["v"][i], page_table, p0, true_len,
                 cfg, n_skip,
                 None if use_kernel else lin_k[i], None if use_kernel else lin_v[i],
             )

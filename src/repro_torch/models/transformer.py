@@ -1,16 +1,19 @@
 """Decoder assembly — the PyTorch counterpart of
-``repro.models.transformer`` for the ``"dense"``, ``"moe"``, ``"mamba"``
-and ``"zamba"`` layer groups: the full-sequence forward (inference), the
-dense route's decode step against full caches and SSM state, and the paged
-route's decode step against a page pool (dense and moe groups).
+``repro.models.transformer`` for the ``"dense"``, ``"moe"``,
+``"gemma_pair"``, ``"mamba"`` and ``"zamba"`` layer groups: the
+full-sequence forward (inference), the dense route's decode step against
+full caches, ring caches and SSM state, and the paged route's decode step
+against a page pool (dense and moe groups).
 
 Parameters are ``{"embed": {...}, "groups": [group, ...]}`` plus, for a
 zamba hybrid, ``"shared_attn"`` (one dense block's dict, shared by every
-zamba group). A dense, moe or mamba group is a list of per-layer dicts; a zamba
-group is a list of ``n_groups`` lists of ``period`` mamba-layer dicts (the
-JAX package stacks each group on leading axes and scans it; Python loops
-over layers replace ``scan_or_unroll`` here). Caches, pools and ``kv_pos``
-are updated in place; the caches keep JAX's stacked layouts (L, B, ...).
+zamba group). A dense, moe or mamba group is a list of per-layer dicts; a
+gemma_pair group a list of ``{"local": block, "global": block}`` pairs; a
+zamba group a list of ``n_groups`` lists of ``period`` mamba-layer dicts
+(the JAX package stacks each group on leading axes and scans it; Python
+loops over layers replace ``scan_or_unroll`` here). Caches, pools and
+``kv_pos`` are updated in place; the caches keep JAX's stacked layouts
+(L, B, ...).
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ from .layers import (
     init_mlp,
     init_rms_norm,
     mlp_forward,
+    pos1d,
     rms_norm,
+    text_positions,
     unembed,
 )
 from .moe import init_moe, moe_forward
@@ -56,17 +61,21 @@ from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 @dataclass(frozen=True)
 class GroupSpec:
-    kind: str          # dense | moe | mamba | zamba (JAX's gemma_pair is not ported yet)
-    n_blocks: int      # layers (zamba: shared-attention invocations)
+    kind: str          # dense | moe | gemma_pair | mamba | zamba
+    n_blocks: int      # layers (gemma_pair: pairs; zamba: shared-attention invocations)
     period: int = 0    # zamba: mamba layers per shared-attention invocation
 
 
 def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
-    """The layer groups of ``cfg``, as in JAX: ``"zamba"`` groups (then any
-    remainder of mamba layers) for the zamba hybrid, one ``"mamba"`` group
-    for an SSM, one ``"moe"`` group for a decoder with experts, one
-    ``"dense"`` group for the other uniform decoders. JAX's gemma_pair
-    groups (local/global layer pairs) are not ported yet and raise."""
+    """The layer groups of ``cfg``, as in JAX: one ``"gemma_pair"`` group of
+    L/2 (local, global) layer pairs for ``local_global``, ``"zamba"`` groups
+    (then any remainder of mamba layers) for the zamba hybrid, one
+    ``"mamba"`` group for an SSM, one ``"moe"`` group for a decoder with
+    experts, one ``"dense"`` group for the other uniform decoders. Audio
+    backbones are not ported yet and raise."""
+    if cfg.layer_pattern == "local_global":
+        assert cfg.n_layers % 2 == 0, "local_global needs even layer count"
+        return [GroupSpec("gemma_pair", cfg.n_layers // 2)]
     if cfg.layer_pattern == "zamba_hybrid":
         period = cfg.shared_attn_period
         n_groups, rem = divmod(cfg.n_layers, period)
@@ -74,10 +83,11 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
         if rem:
             groups.append(GroupSpec("mamba", rem))
         return groups
-    if cfg.layer_pattern != "uniform" or cfg.arch_type == "hybrid":
+    if cfg.layer_pattern != "uniform" or cfg.arch_type in ("hybrid", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: only uniform dense and MoE decoders, SSMs and the zamba "
-            "hybrid are ported (ROADMAP, Queue 1 item 8)"
+            f"{cfg.name}: only uniform dense, VLM and MoE decoders, gemma2's "
+            "local/global pairs, SSMs and the zamba hybrid are ported (ROADMAP, "
+            "Queue 1 item 8)"
         )
     if cfg.arch_type == "ssm":
         return [GroupSpec("mamba", cfg.n_layers)]
@@ -126,6 +136,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
             group = [_init_dense_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
         elif spec.kind == "moe":
             group = [_init_moe_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
+        elif spec.kind == "gemma_pair":
+            group = [{"local": _init_dense_block(cfg, gen, dev),
+                      "global": _init_dense_block(cfg, gen, dev)}
+                     for _ in range(spec.n_blocks)]
         elif spec.kind == "mamba":
             group = [_init_mamba_block(cfg, gen, dev) for _ in range(spec.n_blocks)]
         else:   # zamba: (n_groups, period) mamba blocks
@@ -137,12 +151,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
     return params
 
 
-def _full_caches_only(cfg: ModelConfig) -> None:
-    if cfg.attn_variant != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: ring caches (attn_variant={cfg.attn_variant!r}) are not "
-            "ported (ROADMAP, Queue 1 item 8)"
-        )
+def pair_windows(cfg: ModelConfig) -> Tuple[int, int]:
+    """(local, global) attention windows of a gemma_pair group, as JAX's:
+    the sliding window and none, or both the long-context variant's."""
+    sw = cfg.sliding_window or 8192
+    if cfg.attn_variant == "full":
+        return cfg.sliding_window, 0
+    return sw, sw
 
 
 def _dense_block_full(
@@ -192,19 +207,42 @@ def _run_zamba_full(
     return x
 
 
+def embed_inputs(
+    params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+    patch_embeds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Token embeddings in the compute dtype; for a VLM the stub vision
+    frontend's patch embeddings (B, P, D) overwrite the first P rows."""
+    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    if patch_embeds is not None and cfg.n_patches:
+        x[:, : patch_embeds.shape[1]] = patch_embeds.to(x.dtype)
+    return x
+
+
+def default_positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
+    """Positions 0..S-1 per lane (B, S), broadcast to (3, B, S) for mrope."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    return text_positions(cfg, pos)
+
+
 def forward_full(
     params: Dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,                      # (B,S)
-    seq_valid: Optional[torch.Tensor] = None,  # (B,S) bool
+    tokens: torch.Tensor,                         # (B,S)
+    positions: Optional[torch.Tensor] = None,     # (B,S), or (3,B,S) for mrope
+    patch_embeds: Optional[torch.Tensor] = None,  # (B,P,D) VLM stub frontend
+    seq_valid: Optional[torch.Tensor] = None,     # (B,S) bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for inference (``repro.models.transformer.
-    forward_full``) at positions 0..S-1: returns (logits (B,S,V), aux loss
-    (f32): the sum of the moe layers' Switch losses, 0 without them). With
-    the kernels, attention is K4 and every mamba layer's SSD is K6."""
+    forward_full``): returns (logits (B,S,V), aux loss (f32): the sum of the
+    moe layers' Switch losses, 0 without them). ``positions`` default to
+    0..S-1 (every M-RoPE stream the same); a VLM's ``patch_embeds``
+    overwrite the first rows of the embeddings. With the kernels, attention
+    is K4 and every mamba layer's SSD is K6."""
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    if positions is None:
+        positions = default_positions(cfg, b, s, tokens.device)
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for spec, gp in zip(layer_groups(cfg), params["groups"]):
         if spec.kind == "zamba":
@@ -212,6 +250,11 @@ def forward_full(
         elif spec.kind == "mamba":
             for bp in gp:
                 x, _, _ = _mamba_block_full(bp, x, cfg)
+        elif spec.kind == "gemma_pair":
+            local_w, global_w = pair_windows(cfg)
+            for bp in gp:
+                x = _dense_block_full(bp["local"], x, positions, cfg, local_w, seq_valid)
+                x = _dense_block_full(bp["global"], x, positions, cfg, global_w, seq_valid)
         else:
             w = cfg.window_for_layer(0)  # uniform groups share one window
             group_aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -229,20 +272,30 @@ def make_decode_caches(
     cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None,
 ) -> List[Cache]:
     """Empty caches matching ``layer_groups(cfg)`` on ``device`` (default
-    ``"cuda"``): full caches of ``max_len`` slots per lane (dense and moe
-    groups), SSM state for mamba layers, both for a zamba group."""
-    _full_caches_only(cfg)
+    ``"cuda"``), as JAX's: full caches of ``max_len`` slots per lane (dense
+    and moe groups, a zamba group's shared block, a gemma pair's global
+    layers), ring caches of the window's slots (at most ``max_len``) for a
+    gemma pair's local layers and for every attention layer of the
+    sliding-window variant; SSM state for mamba layers."""
     dev = resolve_device(device)
+    ring_slots = min(cfg.sliding_window or 8192, max_len)
+    attn_slots = ring_slots if cfg.attn_variant == "sliding_window" else max_len
     caches: List[Cache] = []
     for spec in layer_groups(cfg):
         if spec.kind in ("dense", "moe"):
-            caches.append(init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev))
+            caches.append(init_attn_cache(cfg, spec.n_blocks, batch, attn_slots, dev))
+        elif spec.kind == "gemma_pair":
+            caches.append({
+                "local": init_attn_cache(cfg, spec.n_blocks, batch,
+                                         min(cfg.sliding_window, max_len), dev),
+                "global": init_attn_cache(cfg, spec.n_blocks, batch, attn_slots, dev),
+            })
         elif spec.kind == "mamba":
             caches.append(init_ssm_cache(cfg, spec.n_blocks, batch, dev))
         else:
             caches.append({
                 "ssm": init_ssm_cache(cfg, spec.n_blocks * spec.period, batch, dev),
-                "attn": init_attn_cache(cfg, spec.n_blocks, batch, max_len, dev),
+                "attn": init_attn_cache(cfg, spec.n_blocks, batch, attn_slots, dev),
             })
     return caches
 
@@ -250,14 +303,14 @@ def make_decode_caches(
 def _attn_decode_sublayer(
     bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
     cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
-    cfg: ModelConfig, window: int,
+    cfg: ModelConfig, window: int, ring: bool = False,
 ) -> torch.Tensor:
-    """The attention half of a decode layer against a full cache: write the
-    token's K/V at its (clamped) slot and attend. kv_pos is already
-    updated."""
+    """The attention half of a decode layer against a full or ring cache:
+    write the token's K/V at its slot (clamped, or position % T in a ring)
+    and attend. kv_pos is already updated."""
     h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
     k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
-    write_step(cache_k, cache_v, k_new, v_new, positions[:, 0])
+    write_step(cache_k, cache_v, k_new, v_new, pos1d(positions)[:, 0], ring)
     return x + attention_decode(
         bp["attn"], h_in, positions, cache_k, cache_v, kv_pos, kv_valid, cfg, window=window
     )
@@ -266,23 +319,24 @@ def _attn_decode_sublayer(
 def _dense_block_decode(
     bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
     cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
-    cfg: ModelConfig, window: int,
+    cfg: ModelConfig, window: int, ring: bool = False,
 ) -> torch.Tensor:
-    """One dense decode layer against a full cache: attention, then the MLP."""
+    """One dense decode layer against a full or ring cache: attention, then
+    the MLP."""
     x = _attn_decode_sublayer(bp, x, positions, cache_k, cache_v, kv_pos, kv_valid, cfg,
-                              window)
+                              window, ring)
     return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
 
 
 def _moe_block_decode(
     bp: Params, x: torch.Tensor, positions: torch.Tensor, cache_k: torch.Tensor,
     cache_v: torch.Tensor, kv_pos: torch.Tensor, kv_valid: torch.Tensor,
-    cfg: ModelConfig, window: int,
+    cfg: ModelConfig, window: int, ring: bool = False,
 ) -> torch.Tensor:
-    """One MoE decode layer against a full cache: attention, then the
-    experts over the step's B rows (every lane, as in JAX)."""
+    """One MoE decode layer against a full or ring cache: attention, then
+    the experts over the step's B rows (every lane, as in JAX)."""
     x = _attn_decode_sublayer(bp, x, positions, cache_k, cache_v, kv_pos, kv_valid, cfg,
-                              window)
+                              window, ring)
     m, _ = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
     return x + m
 
@@ -308,24 +362,39 @@ def decode_step(
     tokens: torch.Tensor,        # (B, 1)
     pos: torch.Tensor,           # (B,) absolute position of this token
 ) -> Tuple[torch.Tensor, List[Cache]]:
-    """serve_step against full caches and SSM state (``repro.models.
-    transformer.decode_step``): returns (logits (B, 1, V), caches). The
-    token's K/V and position land in ``caches`` in place, at slot
-    ``min(pos, T - 1)`` (JAX clamps: the full-width server decodes its empty
-    lanes too); ``kv_pos`` is updated once per group, before the layer
-    loop; each mamba layer's ``h`` and ``conv`` are replaced in place. With
-    the kernels each attention layer (dense or moe, or zamba's shared
-    block) attends through K5."""
-    _full_caches_only(cfg)
-    positions = pos[:, None].to(torch.int32)
+    """serve_step against full caches, ring caches and SSM state
+    (``repro.models.transformer.decode_step``): returns (logits (B, 1, V),
+    caches). The token's K/V and position land in ``caches`` in place, at
+    slot ``min(pos, T - 1)`` of a full cache (JAX clamps: the full-width
+    server decodes its empty lanes too) or ``pos % T`` of a ring (a gemma
+    pair's local layers; every attention layer of the sliding-window
+    variant); ``kv_pos`` is updated once per cache, before the layer loop;
+    each mamba layer's ``h`` and ``conv`` are replaced in place. With the
+    kernels each attention layer attends through K5 (over a ring too: K5
+    masks by each slot's kv_pos)."""
+    positions = text_positions(cfg, pos[:, None].to(torch.int32))
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    ring = cfg.attn_variant == "sliding_window"
+    window = (cfg.sliding_window or 8192) if ring else 0
     for spec, gp, cache in zip(layer_groups(cfg), params["groups"], caches):
         if spec.kind == "mamba":
             for i, bp in enumerate(gp):
                 x = _mamba_block_decode(bp, x, cache, i, cfg)
             continue
+        if spec.kind == "gemma_pair":
+            loc, glob = cache["local"], cache["global"]
+            update_kv_pos(loc["kv_pos"], pos, True)
+            update_kv_pos(glob["kv_pos"], pos, ring)
+            l_valid, g_valid = loc["kv_pos"] >= 0, glob["kv_pos"] >= 0
+            for i, bp in enumerate(gp):
+                x = _dense_block_decode(bp["local"], x, positions, loc["k"][i], loc["v"][i],
+                                        loc["kv_pos"], l_valid, cfg, cfg.sliding_window, True)
+                x = _dense_block_decode(bp["global"], x, positions, glob["k"][i],
+                                        glob["v"][i], glob["kv_pos"], g_valid, cfg, window,
+                                        ring)
+            continue
         attn = cache["attn"] if spec.kind == "zamba" else cache
-        update_kv_pos(attn["kv_pos"], pos)
+        update_kv_pos(attn["kv_pos"], pos, ring)
         kv_valid = attn["kv_pos"] >= 0
         if spec.kind == "zamba":
             for g, group in enumerate(gp):
@@ -333,13 +402,14 @@ def decode_step(
                     x = _mamba_block_decode(bp, x, cache["ssm"], g * spec.period + i, cfg)
                 x = _dense_block_decode(
                     params["shared_attn"], x, positions, attn["k"][g], attn["v"][g],
-                    attn["kv_pos"], kv_valid, cfg, 0,
+                    attn["kv_pos"], kv_valid, cfg, window, ring,
                 )
             continue
         block_fn = _dense_block_decode if spec.kind == "dense" else _moe_block_decode
         for i, bp in enumerate(gp):
             x = block_fn(
-                bp, x, positions, attn["k"][i], attn["v"][i], attn["kv_pos"], kv_valid, cfg, 0,
+                bp, x, positions, attn["k"][i], attn["v"][i], attn["kv_pos"], kv_valid, cfg,
+                window, ring,
             )
     return unembed(params["embed"], x, cfg), caches
 
@@ -355,7 +425,7 @@ def _paged_attn_sublayer(
     into its page cell, then attend through the page table. On the
     reference path the hoisted linear views get the new token inserted at
     slot == position (dropped past their width, like the pool write)."""
-    pos = positions[:, 0]
+    pos = pos1d(positions)[:, 0]
     h_in = rms_norm(x, bp["norm1"], cfg.norm_eps)
     k_new, v_new = project_kv_step(bp["attn"], h_in, positions, cfg)
     paged_write_step(pool_k, pool_v, k_new, v_new, pos, page_table, page_size)
@@ -423,7 +493,7 @@ def decode_step_paged(
     each lane's suffix); the reference path ignores ``shared_pages`` and
     gathers the whole stack's pages once per step, before any layer
     writes."""
-    positions = pos[:, None].to(torch.int32)
+    positions = text_positions(cfg, pos[:, None].to(torch.int32))
     x = embed_tokens(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
     page_size = pools[0]["k"].shape[2]
     update_kv_pos_paged(kv_pos, pos)

@@ -6,8 +6,10 @@ with ``jax.tree_util.tree_map(np.asarray, params)`` and hand them to both
 packages, so the two run the same numbers. Each group's leading L axis is
 un-stacked into a list of per-layer dicts (a moe group's (L, E, D, F)
 expert stacks and (L, D, E) router into per-layer (E, D, F) and (D, E); a
-zamba group's two leading axes, (n_groups, period), into a list of
-lists), and a zamba hybrid's ``shared_attn`` block crosses as one dict.
+gemma_pair group's ``{"local": stack, "global": stack}`` into a list of
+``{"local": layer, "global": layer}`` pairs; a zamba group's two leading
+axes, (n_groups, period), into a list of lists), and a zamba hybrid's
+``shared_attn`` block crosses as one dict.
 bf16 arrays (numpy dtype ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses) cross through a 16-bit integer view and come
 out bit-exact.

@@ -148,9 +148,15 @@ class BatchedServer:
         prefill_chunk_tokens: Optional[int] = 64,
         device: DeviceLike = None,
     ) -> None:
-        if not supports_append(cfg):
+        # as JAX: full-cache attention decoders (gemma2's pairs, whose ring
+        # caches cannot be appended to, on the full-width server only)
+        if cfg.attn_variant != "full" or cfg.arch_type not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"batched serving requires full-cache dense/moe groups ({cfg.name})"
+                f"batched serving requires full-cache attention archs ({cfg.name})"
+            )
+        if paged and not supports_append(cfg):
+            raise NotImplementedError(
+                f"paged batched serving requires full-cache dense/moe groups ({cfg.name})"
             )
         if paged and max_len % page_size:
             raise ValueError(f"max_len {max_len} is not a multiple of page_size {page_size}")
@@ -293,7 +299,11 @@ class BatchedServer:
             logits, one, _ = self._bucketed_prefill(ids)
         for big, small in zip(self.caches, one):
             for name in big:
-                self._put_entry(big[name], small[name], idx, name)
+                if isinstance(big[name], dict):    # a gemma pair's local / global
+                    for sub in big[name]:
+                        self._put_entry(big[name][sub], small[name][sub], idx, sub)
+                else:
+                    self._put_entry(big[name], small[name], idx, name)
         warm_source = (
             warm_source_of(entry.source) if entry is not None and usable > 0 else "none"
         )
@@ -541,6 +551,8 @@ class BatchedServer:
         the lane."""
         prefix = st.token_ids + st.generated
         if not self.paged:
+            if any("kv_pos" not in c for c in self.caches):
+                return  # a gemma pair's ring caches: not pooled, as in JAX
             one = [
                 {"k": c["k"][:, idx : idx + 1].clone(), "v": c["v"][:, idx : idx + 1].clone(),
                  "kv_pos": c["kv_pos"][idx : idx + 1]}
@@ -905,7 +917,9 @@ class BatchedLLMService:
         """A batched service on ``device`` (default ``"cuda"``; raises
         without a GPU unless ``device="cpu"``). Weights are drawn from
         ``seed`` unless ``params`` (e.g. bridged JAX weights) are given.
-        ``paged=False`` (the default, as in JAX) is the full-width server."""
+        ``paged=False`` (the default, as in JAX) is the full-width server;
+        ``paged=True`` falls back to it, as JAX's does, for a model whose
+        caches cannot be appended to (gemma2's ring caches)."""
         dev = resolve_device(device)
         if params is None:
             params = init_params(cfg, seed, dev)
@@ -916,7 +930,7 @@ class BatchedLLMService:
         )
         server = BatchedServer(
             cfg, params, n_slots=n_slots, max_len=max_len, session_pool=pool,
-            paged=paged, page_size=page_size, kv_pages=kv_pages,
+            paged=paged and supports_append(cfg), page_size=page_size, kv_pages=kv_pages,
             share_prefixes=share_prefixes, prefill_chunk_tokens=prefill_chunk_tokens,
             device=dev,
         )

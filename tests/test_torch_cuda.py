@@ -60,8 +60,9 @@ def _paged(dev, lens, ps, H, KV, Dh, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
+                (28, 4, 128), (32, 16, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
 )
 def test_paged_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
     lens = (0, 1, ps - 1, ps, 2 * ps + 3, 300)
@@ -179,6 +180,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 4, 2, 32, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         paged_attention(q, pk.half(), pv.half(), table, q_pos, kv_pos)
+    # K1 and K5 take G * Dh up to 2048 (two row groups of a KV head)
+    q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 18, 1, 128, torch.float32)
+    with pytest.raises(ValueError, match="exceeds 2048"):
+        paged_attention(q, pk, pv, table, q_pos, kv_pos)
 
 
 def _shared(dev, n_shared, suffixes, ps, H, KV, Dh, dtype, seed=0):
@@ -212,8 +217,9 @@ def _shared(dev, n_shared, suffixes, ps, H, KV, Dh, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
+                (28, 4, 128), (32, 16, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
 )
 def test_shared_prefix_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
     """K2 against its plain version on all of (acc, m, l): suffixes of
@@ -236,8 +242,9 @@ def test_shared_prefix_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
+                (28, 4, 128), (32, 16, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (-3, 30.0)], ids=["plain", "window-cap"])
 def test_cascade_matches_single_pass(dev, dtype, ps, H, KV, Dh, window, softcap):
@@ -302,8 +309,9 @@ def _read_rows(q_pos, kv_pos, valid, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
-                (8, 2, 112)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112"],
+                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112", "chatglm3",
+         "qwen2vl", "gemma2"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -350,8 +358,9 @@ def test_flash_kernel_bf16_edges(dev, Dh, H, KV, window, softcap):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
-                (8, 2, 112)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112"],
+                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112", "chatglm3",
+         "qwen2vl", "gemma2"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_decode_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -485,7 +494,8 @@ def _k5_split_inputs(dev, B, H, KV, Dh, dtype, lanes, T=1000, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", BATCHES)
-@pytest.mark.parametrize("H,KV,Dh", [(16, 16, 64), (8, 2, 112)], ids=["paper", "gqa112"])
+@pytest.mark.parametrize("H,KV,Dh", [(16, 16, 64), (8, 2, 112), (32, 2, 128)],
+                         ids=["paper", "gqa112", "chatglm3"])
 @pytest.mark.parametrize("case", list(K5_SPLIT_CASES))
 def test_decode_split_edges(dev, monkeypatch, dtype, B, H, KV, Dh, case):
     """K5 with 1 split, with 8 and with the planner's choice, each against

@@ -59,9 +59,15 @@ def test_rope_standard(rng, theta):
 
 
 def test_rope_other_styles_raise(tiny_dense_cfg):
-    cfg = _tcfg(tiny_dense_cfg).replace(rope_style="mrope")
-    with pytest.raises(NotImplementedError):
+    """Every rope style of the JAX package is ported (standard, chatglm2d,
+    mrope: ``tests/test_torch_rope.py``); any other raises ValueError, as
+    JAX's ``apply_rope`` does."""
+    cfg = _tcfg(tiny_dense_cfg).replace(rope_style="yarn")
+    jcfg = tiny_dense_cfg.replace(rope_style="yarn")
+    with pytest.raises(ValueError):
         layers.apply_rope(cfg, torch.zeros(1, 1, 4, 16), torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        jlayers.apply_rope(jcfg, jnp.zeros((1, 1, 4, 16)), jnp.zeros((1, 1), jnp.int32))
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "relu2", "gelu"])

@@ -36,7 +36,8 @@ def test_configs_and_registry_match_jax():
     ``ASSIGNED`` holds the assigned architectures it serves, ``ALL`` adds
     the paper model, and names resolve with either spelling."""
     assert set(tconfigs.ASSIGNED) == {
-        "qwen2-0.5b", "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "zamba2-7b"}
+        "qwen2-0.5b", "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "zamba2-7b",
+        "chatglm3-6b", "qwen2-vl-7b", "gemma2-27b"}
     assert set(tconfigs.ASSIGNED) <= set(jconfigs.ASSIGNED)
     assert set(tconfigs.ALL) == set(tconfigs.ASSIGNED) | {"paper-qwen1.5-0.5b"}
     assert tconfigs.list_archs() == sorted(tconfigs.ASSIGNED)
@@ -47,7 +48,7 @@ def test_configs_and_registry_match_jax():
     assert (q.n_layers, q.d_model, q.n_heads, q.n_kv_heads, q.d_head) == (24, 896, 14, 2, 64)
     assert q.qkv_bias and q.tie_embeddings and q.rope_theta == 1e6
     with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get_config("gemma2-27b")
+        tconfigs.get_config("musicgen-medium")
 
 
 @pytest.mark.parametrize("route", ["paged", "dense"])

@@ -41,7 +41,9 @@ _ISOLATED = textwrap.dedent(
                  "repro_torch.core.manager", "repro_torch.store.kv_ship",
                  "repro_torch.edge.cluster", "repro_torch.launch.serve",
                  "repro_torch.fleet.workload", "repro_torch.models.moe",
-                 "repro_torch.configs.granite_moe_3b_a800m"):
+                 "repro_torch.configs.granite_moe_3b_a800m",
+                 "repro_torch.configs.chatglm3_6b", "repro_torch.configs.qwen2_vl_7b",
+                 "repro_torch.configs.gemma2_27b"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -63,8 +65,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     # every module was walked: the kernels, the serving stack, the
     # DisCEdge system layers (core, store, edge, data, launch), the fleet
-    # layer, the MoE layer and the configs of qwen2, granite and dbrx
-    assert int(out.stdout.strip().splitlines()[-1]) >= 75
+    # layer, the MoE layer and the configs of qwen2, granite, dbrx,
+    # chatglm3, qwen2-vl and gemma2
+    assert int(out.stdout.strip().splitlines()[-1]) >= 78
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -72,7 +75,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     device raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
-    from repro_torch.configs import GRANITE_MOE_3B_A800M, PAPER_QWEN15_0_5B
+    from repro_torch.configs import (
+        CHATGLM3_6B,
+        GEMMA2_27B,
+        GRANITE_MOE_3B_A800M,
+        PAPER_QWEN15_0_5B,
+        QWEN2_VL_7B,
+    )
     from repro_torch.launch import serve
     from repro_torch.models import init_params, params_from_numpy
     from repro_torch.serving import BatchedLLMService, InferenceEngine, TorchLLMService
@@ -82,6 +91,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", PAPER_QWEN15_0_5B.name, "--turns", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", GRANITE_MOE_3B_A800M.name, "--turns", "1"])
+    for arch in (CHATGLM3_6B, QWEN2_VL_7B, GEMMA2_27B):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch.name, "--turns", "1"])
+        small = arch.reduced()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(small)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            InferenceEngine.create(small)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TorchLLMService.create("m", small, page_size=16, kv_pages=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BatchedLLMService.create("m", small, paged=True, kv_pages=8)
     moe = GRANITE_MOE_3B_A800M.reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(moe)

@@ -49,8 +49,9 @@ non-zero):
                plain versions at the GQA groups of granite-moe (24/8 x 64,
                G = 3), qwen2 (14/2 x 64, G = 7), chatglm3 (32/2 x 128,
                G = 16: G·Dh 2048, two row groups in K1 and K5, one lane
-               per K2 block), qwen2-vl (28/4 x 128) and gemma2 (32/16 x
-               128), bf16 and f32: ragged page bounds, planned and forced
+               per K2 block), qwen2-vl (28/4 x 128), gemma2 (32/16 x
+               128) and nemotron (96/8 x 192, G = 12: G·Dh 2304, three row
+               groups in K1 and K5, two in K2), bf16 and f32: ragged page bounds, planned and forced
                splits, queries inside and past a shared run, chunks whose
                S·G is no multiple of K3's 64-row tile, p0 inside a key
                tile, window x softcap, and K5 on a wrapped 4096-slot ring
@@ -179,9 +180,24 @@ non-zero):
                / K5 launch counts; a teacher-forced 4608 + 32-token turn
                in bf16 (GEMMA2_LOGIT_REL x std) and in f32 over the first
                2 pairs (``{"gemma2_path"}``);
-23. result  — JSON lines with every kernel's numbers (K1-K6), the card's
-               name and power limit, and last ``{"ok": true, "device":
-               {...}}``.
+23. nemotron-4-340b — every published width (d_model 18432, GQA 96/8 x
+               192: G·Dh 2304, d_ff 73728, vocab 256000) with the depth cut
+               to 4 of 96 layers (~46.5 GB of bf16 weights), as phase 21:
+               both routes with exact launch counts, a teacher-forced turn
+               in bf16 (NEMOTRON_LOGIT_REL x std), a batched wave (K1, K2
+               with two row groups, K3), and the f32 check over 2 layers
+               (``{"nemotron_path"}``);
+24. musicgen-medium — full width and depth (48 layers, MHA 24 x 64, 4
+               codebooks of 2048), through its model functions as JAX
+               serves it: a 1024-frame prefill of the synthetic
+               delay-pattern data and 32 greedy decode steps on the dense
+               (K4, K5) and the paged (K3 in 256-frame chunks, K1) route,
+               exact launch counts, kernel vs plain per codebook in bf16
+               (MUSICGEN_LOGIT_REL x std) and in f32 over 4 layers
+               (``{"musicgen_path"}``);
+25. result  — JSON lines with every kernel's numbers (K1-K6; launches
+               also count phases 23-24), the card's name and power limit,
+               and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -189,6 +205,7 @@ Imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -695,7 +712,10 @@ def _k2_timed(dev, gen, H, KV, Dh, n_layers) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ref
     from repro_torch.kernels.paged_attention.kernel import (
+        K2_MAX_ROWS_DH,
+        TARGET_BLOCKS,
         paged_attention_cuda,
+        row_groups,
         shared_prefix_cuda,
         shared_prefix_plan,
     )
@@ -713,7 +733,11 @@ def _k2_timed(dev, gen, H, KV, Dh, n_layers) -> dict:
     lanes, splits, grid = shared_prefix_plan(B, KV, H // KV, Dh, T)
     log(f"K2 server shape {H}/{KV} x {Dh}: "
         f"{_k2_plan_str(shared_prefix_plan, B, KV, H // KV, Dh, n_run)}")
-    assert splits > 1 and grid[1] * grid[2] == KV * -(-B // lanes), \
+    n_groups = row_groups(H // KV, Dh, K2_MAX_ROWS_DH)[0]
+    assert grid[1] * grid[2] == KV * n_groups * -(-B // lanes), (grid, lanes, n_groups)
+    # the run is split across a cluster unless the unsplit grid already
+    # fills the planner's target (nemotron: 8 KV heads x 2 row groups x 8 lanes)
+    assert splits > 1 or grid[1] * grid[2] >= TARGET_BLOCKS, \
         "K2 must split the run across a cluster"
     first, again = (shared_prefix_cuda(*prepared[0][:5]) for _ in range(2))
     torch.cuda.synchronize()
@@ -777,10 +801,13 @@ def _k2_timed(dev, gen, H, KV, Dh, n_layers) -> dict:
 
 
 def _k2_plan_str(plan, B, KV, G, Dh, n_pages) -> str:
+    from repro_torch.kernels.paged_attention.kernel import K2_MAX_ROWS_DH, row_groups
+
+    n_groups, rows = row_groups(G, Dh, K2_MAX_ROWS_DH)
     lanes, splits, grid = plan(B, KV, G, Dh, n_pages * PS)
-    return (f"B={B} KV={KV} G={G} Dh={Dh} run {n_pages * PS} tokens -> {lanes} lanes per "
-            f"block, splits {splits}, grid {grid} = {grid[0] * grid[1] * grid[2]} blocks, "
-            f"cluster ({splits}, 1, 1)")
+    return (f"B={B} KV={KV} G={G} Dh={Dh} run {n_pages * PS} tokens -> {n_groups} row "
+            f"group(s) of {rows}, {lanes} lanes per block, splits {splits}, grid {grid} = "
+            f"{grid[0] * grid[1] * grid[2]} blocks, cluster ({splits}, 1, 1)")
 
 
 def launch_floor_ms(dev) -> float:
@@ -1044,11 +1071,13 @@ def _k5_plan_str(plan, B, H, KV, Dh, T) -> str:
 # K1-K5 at the GQA groups of the assigned models: granite-moe-3b-a800m
 # (24/8 x 64, G = 3), qwen2-0.5b (14/2 x 64, G = 7), chatglm3-6b (32/2 x
 # 128, G = 16: G * Dh = 2048, two row groups in K1 and K5), qwen2-vl-7b
-# (28/4 x 128, G = 7) and gemma2-27b (32/16 x 128, G = 2, softcap 50)
+# (28/4 x 128, G = 7), gemma2-27b (32/16 x 128, G = 2, softcap 50) and
+# nemotron-4-340b (96/8 x 192, G = 12: G * Dh = 2304, three row groups in
+# K1 and K5, two in K2)
 # ---------------------------------------------------------------------------
 
 GQA_MODELS = (("granite", 24, 8, 64), ("qwen2", 14, 2, 64), ("chatglm3", 32, 2, 128),
-              ("qwen2-vl", 28, 4, 128), ("gemma2", 32, 16, 128))
+              ("qwen2-vl", 28, 4, 128), ("gemma2", 32, 16, 128), ("nemotron", 96, 8, 192))
 GQA_SOFTCAP = {"gemma2": 50.0}   # the attention softcap of a model's serving shape
 GQA_F32_TOL = 1e-4   # K1-K5 in f32 (TF32 off) at these shapes: K45_F32_TOL,
                      # the same f32 products summed in another order
@@ -1114,7 +1143,8 @@ def _k5_ring_check(tag, dtype, H, KV, Dh, gen, dev) -> float:
 def phase_gqa(dev, n_layers: int) -> dict:
     """K1, K2 (with K1's continuation), K3, K4 and K5 against their plain
     versions at the head layouts of ``GQA_MODELS`` (G = 3, 7, 16 at
-    G * Dh = 2048, 7 and 2 at d_head 128), in bf16 and in f32: K1 on
+    G * Dh = 2048, 7 and 2 at d_head 128, 12 at d_head 192: G * Dh = 2304),
+    in bf16 and in f32: K1 on
     ragged lanes (an empty one,
     page bounds mid-page) at ps 8/16/64 with planned and forced 1/8
     splits, window x softcap; K2's stats and the cascade (K2 + K1's
@@ -2923,14 +2953,15 @@ NEW_F32_REL = 1e-3      # the same in f32 (TF32 off, 4 layers), as SSM_F32_REL
 VISION_GRID = 16        # qwen2-vl's 256 patches: a 16 x 16 grid
 
 
-def _f32_check(name, cfg, ids, forced, dev, teacher) -> dict:
-    """``cfg`` cut to its first 4 layers in f32 (weights from seed 0 in
-    f32, TF32 off): ``teacher(cfg, params, ids, forced, dev)`` through the
-    kernel and the plain path, max |logit diff| <= NEW_F32_REL x std."""
+def _f32_check(name, cfg, ids, forced, dev, teacher, n_layers=4) -> dict:
+    """``cfg`` cut to its first ``n_layers`` layers in f32 (weights from
+    seed 0 in f32, TF32 off): ``teacher(cfg, params, ids, forced, dev)``
+    through the kernel and the plain path, max |logit diff| <= NEW_F32_REL
+    x std."""
     import torch
     from repro_torch.models import init_params
 
-    f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32",
+    f32 = cfg.replace(n_layers=n_layers, param_dtype="float32", compute_dtype="float32",
                       attn_impl="cuda")
     p32 = init_params(f32, seed=0, device=dev)
     kern = teacher(f32, p32, ids, forced, dev)
@@ -2939,13 +2970,14 @@ def _f32_check(name, cfg, ids, forced, dev, teacher) -> dict:
     assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
     std = plain.std().item()
     diff = (kern - plain).abs().max().item()
-    log(f"{name} f32 (4 of {cfg.n_layers} layers, TF32 off): teacher-forced {len(ids)} + "
-        f"{len(forced)} tokens: max |logit diff| kernel vs plain {diff:.4e} = {diff / std:.3e} "
-        f"x logit std {std:.4f} (bound {NEW_F32_REL} x std)")
+    log(f"{name} f32 ({n_layers} of {cfg.n_layers} layers, TF32 off): teacher-forced "
+        f"{len(ids)} + {len(forced)} tokens: max |logit diff| kernel vs plain {diff:.4e} = "
+        f"{diff / std:.3e} x logit std {std:.4f} (bound {NEW_F32_REL} x std)")
     assert diff <= NEW_F32_REL * std, (name, diff, std)
     del p32, kern, plain
     torch.cuda.empty_cache()
-    return {"layers": 4, "max_logit_diff": diff, "logit_std": std, "bound": NEW_F32_REL * std}
+    return {"layers": n_layers, "max_logit_diff": diff, "logit_std": std,
+            "bound": NEW_F32_REL * std}
 
 
 def _bf16_check(name, cfg, params, ids, forced, dev, teacher, rel) -> dict:
@@ -3050,17 +3082,17 @@ def _vision_check(cfg, params, dev, rel) -> dict:
             "bound": rel * std, "broadcast_stream_moves_logits_by": moved}
 
 
-def phase_gqa_model(dev, base, rel, vision=False) -> dict:
-    """One full-width GQA decoder at d_head 128 (random bf16 weights from
-    seed 0): 2 sessions x 2 turns (contexts of 300-1100 tokens, 32 new
+def phase_gqa_model(dev, base, rel, vision=False, f32_layers=4) -> dict:
+    """One full-width GQA decoder (random bf16 weights from seed 0): 2
+    sessions x 2 turns (contexts of 300-1100 tokens, 32 new
     tokens) on the paged route (K3 + K1) and on the dense route (K4 + K5)
     with exact launch counts; session s1's last turn teacher-forced through
     the kernel and plain paths (paged) within ``rel`` x std; a
     ``BatchedLLMService(paged=True)`` wave of 8 tenants sharing a 512-token
     system prompt (K1, K2 and K3 launched, the prompt shared); with
     ``vision``, qwen2-vl's multimodal prefill (``_vision_check``); then the
-    teacher-forced check in f32 over the first 4 layers (and the vision
-    check in f32). The model is freed after."""
+    teacher-forced check in f32 over the first ``f32_layers`` layers (and
+    the vision check in f32 over 4). The model is freed after."""
     import numpy as np
     import torch
     from repro_torch.models import init_params
@@ -3089,7 +3121,7 @@ def phase_gqa_model(dev, base, rel, vision=False) -> dict:
         out[route] = _route_launches(svc, name, route, contexts, 2, 200, rng)
     hist, forced = out["paged"].pop("last")["s1"]
     out["dense"].pop("last")
-    del services
+    del services, svc   # the loops' last service holds the weights too
     ids = hist[: len(hist) - len(forced)]
     out["bf16"] = _bf16_check(name, cfg, params, ids, forced, dev, teacher_forced_logits, rel)
 
@@ -3131,10 +3163,14 @@ def phase_gqa_model(dev, base, rel, vision=False) -> dict:
     if vision:
         out["vision"] = _vision_check(cfg, params, dev, rel)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"{name}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after the bf16 "
+        f"weights are freed")
 
     seq = np.random.default_rng(1).integers(300, cfg.vocab_size, size=272).tolist()
-    out["f32"] = _f32_check(name, cfg, seq[:256], seq[256:], dev, teacher_forced_logits)
+    out["f32"] = _f32_check(name, cfg, seq[:256], seq[256:], dev, teacher_forced_logits,
+                            f32_layers)
     if vision:
         f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
         p32 = init_params(f32, seed=0, device=dev)
@@ -3240,6 +3276,210 @@ def phase_gemma2(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# nemotron-4-340b at every published width, its depth cut; musicgen-medium
+# at full width and depth, through its model functions
+# ---------------------------------------------------------------------------
+
+NEMOTRON_LAYERS = 4       # of 96: ~46.5 GB of bf16 weights; every width as published
+NEMOTRON_F32_LAYERS = 2   # its f32 embeddings and head alone are 37.7 GB
+NEMOTRON_CUT = (f"depth cut to {NEMOTRON_LAYERS} of 96 layers (d_model 18432, 96/8 heads x "
+                f"192, d_ff 73728, vocab 256000: every width as published; ~680 GB at full "
+                f"depth); with 4 layers the host's share of a step is larger than in a "
+                f"deployment, and the f32 check runs over {NEMOTRON_F32_LAYERS} layers")
+MUSICGEN_PROMPT, MUSICGEN_NEW, MUSICGEN_CHUNK = 1024, 32, 256   # frames
+# kernel vs plain logits in bf16, per codebook, as a multiple of the plain
+# logits' std; set from CPU runs at these head geometries before the first
+# run on the card (scripts/logit_bounds.py; PERF.md §6)
+NEMOTRON_LOGIT_REL = 0.3
+MUSICGEN_LOGIT_REL = 0.3
+
+
+def musicgen_frames(cfg, n_frames, seed=0):
+    """(1, n_frames, K) codes of the port's synthetic data: K codebook
+    streams in MusicGen's delay pattern (``data.synthetic.BatchIterator``)."""
+    from repro_torch.data.synthetic import BatchIterator
+
+    return next(BatchIterator(cfg, batch_size=1, seq_len=n_frames, seed=seed))["tokens"]
+
+
+def _codes_of(logits):
+    """Greedy codes of (1, K, V) or (1, 1, K, V) logits -> (1, 1, K) int32."""
+    import torch
+
+    return logits.reshape(1, 1, *logits.shape[-2:]).argmax(-1).to(torch.int32)
+
+
+def musicgen_dense(cfg, params, prompt, n_new, dev, forced=None, marks=None):
+    """The dense route of an audio model: ``prefill`` of the (1, S, K)
+    ``prompt`` into caches of S + ``n_new`` slots (K4 once per layer), then
+    ``n_new`` ``decode_step`` calls (K5 once per layer each), fed the
+    previous step's greedy codes or the (1, n_new, K) ``forced`` codes.
+    Returns (every step's logits (n_new + 1, K, V) f32, the fed codes
+    (1, n_new, K)); ``marks`` gets a host clock after the prefill and at the
+    end (each after a device sync on the card)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    toks = torch.as_tensor(prompt, device=dev)
+    logits, caches, pos = prefill(params, cfg, toks, toks.shape[1] + n_new)
+    assert tuple(logits.shape) == (1, cfg.n_codebooks, cfg.vocab_size), logits.shape
+    _mark(marks, dev)
+    out, fed = [logits[0].float()], []
+    for i in range(n_new):
+        nxt = forced[:, i:i + 1] if forced is not None else _codes_of(logits)
+        fed.append(nxt)
+        logits, caches = decode_step(params, cfg, caches, nxt, pos)
+        pos = pos + 1
+        out.append(logits[0, 0].float())
+    assert tuple(logits.shape) == (1, 1, cfg.n_codebooks, cfg.vocab_size), logits.shape
+    _mark(marks, dev)
+    return torch.stack(out), torch.cat(fed, dim=1)
+
+
+def musicgen_paged(cfg, params, prompt, n_new, dev, forced=None, marks=None):
+    """The paged route of an audio model: the (1, S, K) ``prompt`` in
+    ``MUSICGEN_CHUNK``-frame ``prefill_chunk_paged`` calls (K3 once per
+    layer each) into pages of ``PS`` slots, then ``n_new``
+    ``decode_step_paged`` calls (K1 once per layer each), as
+    ``musicgen_dense``."""
+    import torch
+    from repro_torch.models import decode_step_paged, prefill_chunk_paged
+    from repro_torch.models.cache import init_paged_pool
+
+    toks = torch.as_tensor(prompt, device=dev)
+    s = toks.shape[1]
+    mp = -(-(s + n_new) // PS)
+    pools = [init_paged_pool(cfg, cfg.n_layers, 1 + mp, PS, dev)]
+    table = torch.arange(1, 1 + mp, dtype=torch.int32, device=dev)[None]
+    for p0 in range(0, s, MUSICGEN_CHUNK):
+        chunk = toks[:, p0:p0 + MUSICGEN_CHUNK]
+        logits = prefill_chunk_paged(
+            params, cfg, pools, table, chunk, torch.tensor([p0], dtype=torch.int32, device=dev),
+            torch.tensor([chunk.shape[1]], dtype=torch.int32, device=dev))
+    assert tuple(logits.shape) == (1, cfg.n_codebooks, cfg.vocab_size), logits.shape
+    _mark(marks, dev)
+    iota = torch.arange(mp * PS, dtype=torch.int32, device=dev)
+    kv_pos = torch.where(iota < s, iota, torch.full_like(iota, -1))[None].contiguous()
+    out, fed = [logits[0].float()], []
+    for i in range(n_new):
+        nxt = forced[:, i:i + 1] if forced is not None else _codes_of(logits)
+        fed.append(nxt)
+        logits = decode_step_paged(params, cfg, pools, table, kv_pos, nxt,
+                                   torch.tensor([s + i], dtype=torch.int32, device=dev))
+        out.append(logits[0, 0].float())
+    _mark(marks, dev)
+    return torch.stack(out), torch.cat(fed, dim=1)
+
+
+def _mark(marks, dev) -> None:
+    if marks is not None:
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+
+def _per_codebook(name, kern, plain, rel) -> dict:
+    """Kernel vs plain logits (steps, K, V) per codebook: max |diff| <=
+    ``rel`` x that codebook's plain logits' std."""
+    import torch
+
+    assert kern.shape == plain.shape, (kern.shape, plain.shape)
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all(), name
+    rows = []
+    for k in range(kern.shape[1]):
+        std = plain[:, k].std().item()
+        diff = (kern[:, k] - plain[:, k]).abs().max().item()
+        agree = (kern[:, k].argmax(-1) == plain[:, k].argmax(-1)).float().mean().item()
+        rows.append({"max_logit_diff": diff, "logit_std": std, "rel": diff / std,
+                     "argmax_agreement": agree})
+        assert diff <= rel * std, (name, k, diff, rel, std)
+    rels = ", ".join(f"{r['rel']:.3e}" for r in rows)
+    agree = [round(r["argmax_agreement"], 3) for r in rows]
+    log(f"{name}: max |logit diff| kernel vs plain per codebook [{rels}] x std (bound {rel} "
+        f"x std), argmax agreement {agree}")
+    return {"codebooks": rows, "bound_rel": rel}
+
+
+def phase_musicgen(dev) -> dict:
+    """Full-width, full-depth musicgen-medium (48 layers, MHA 24 x 64, 4
+    codebooks of 2048; random bf16 weights from seed 0, ~2.8 GB; nothing
+    cut) through its model functions, as JAX serves it: a prefill of
+    ``MUSICGEN_PROMPT`` frames of the synthetic delay-pattern data, then
+    ``MUSICGEN_NEW`` greedy decode steps, on the dense route (``prefill``:
+    K4 48 times; ``decode_step``: K5 48 times a step) and on the paged
+    route (``prefill_chunk_paged`` in 256-frame chunks: K3 48 times a
+    chunk; ``decode_step_paged``: K1 48 times a step), each with exact
+    launch counts; the plain path teacher-forced with the kernel path's
+    codes within MUSICGEN_LOGIT_REL x std per codebook; then the same in
+    f32 (TF32 off) over the first 4 layers within NEW_F32_REL x std."""
+    import torch
+    from repro_torch.configs import MUSICGEN_MEDIUM
+    from repro_torch.models import init_params
+
+    cfg = MUSICGEN_MEDIUM.replace(attn_impl="cuda")
+    name, L = cfg.name, cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    frames = musicgen_frames(cfg, MUSICGEN_PROMPT + MUSICGEN_NEW)
+    prompt = frames[:, :MUSICGEN_PROMPT]
+    torch.cuda.synchronize()
+    log(f"{name}: weights {time.perf_counter() - t0:.2f} s ({L} layers, {cfg.n_heads} heads x "
+        f"{cfg.d_head}, {cfg.n_codebooks} codebooks of {cfg.vocab_size}, bf16 weights "
+        f"{sum(p.numel() for p in _leaves(params)) * 2 / 1e9:.3f} GB); prompt "
+        f"{tuple(prompt.shape)} frames of the synthetic delay-pattern data")
+    runs = {"dense": (musicgen_dense, {"flash_attention": L,
+                                       "decode_attention": L * MUSICGEN_NEW}),
+            "paged": (musicgen_paged, {"chunked_prefill": L * -(-MUSICGEN_PROMPT //
+                                                                MUSICGEN_CHUNK),
+                                       "paged_attention": L * MUSICGEN_NEW})}
+    counters = dict(_counters(), **_dense_counters())
+    out = {}
+    for route, (fn, expect) in runs.items():
+        fn(cfg, params, prompt[:, :64], 2, dev)               # warm-up, not counted
+        for c in counters.values():
+            c.launches = 0
+        marks = [time.perf_counter()]
+        kern, codes = fn(cfg, params, prompt, MUSICGEN_NEW, dev, marks=marks)
+        launches = {k: c.launches for k, c in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(expect)
+        log(f"{name} {route}: prefill of {MUSICGEN_PROMPT} frames {1e3 * (marks[1] - marks[0]):.3f}"
+            f" ms, {MUSICGEN_NEW} decode steps {1e3 * (marks[2] - marks[1]) / MUSICGEN_NEW:.3f} "
+            f"ms each; kernel launches {launches} (expected {want})")
+        assert launches == want, (route, launches, want)
+        plain, _ = fn(cfg.replace(attn_impl="reference"), params, prompt, MUSICGEN_NEW, dev,
+                      forced=codes)
+        torch.cuda.synchronize()
+        out[route] = {"launches": launches,
+                      "prefill_ms": 1e3 * (marks[1] - marks[0]),
+                      "decode_ms_per_step": 1e3 * (marks[2] - marks[1]) / MUSICGEN_NEW,
+                      "bf16": _per_codebook(f"{name} {route} bf16 ({MUSICGEN_PROMPT} + "
+                                            f"{MUSICGEN_NEW} frames)", kern, plain,
+                                            MUSICGEN_LOGIT_REL)}
+        out[route]["codes"] = codes
+    del params
+    torch.cuda.empty_cache()
+
+    f32 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    p32 = init_params(f32, seed=0, device=dev)
+    for route, (fn, _) in runs.items():
+        codes = out[route].pop("codes")
+        kern, _ = fn(f32, p32, prompt, MUSICGEN_NEW, dev, forced=codes)
+        plain, _ = fn(f32.replace(attn_impl="reference"), p32, prompt, MUSICGEN_NEW, dev,
+                      forced=codes)
+        torch.cuda.synchronize()
+        out[route]["f32"] = dict(_per_codebook(
+            f"{name} {route} f32 (4 of {L} layers, TF32 off)", kern, plain, NEW_F32_REL),
+            layers=4)
+    del p32
+    torch.cuda.empty_cache()
+    log(f"{name}: summary {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The fleet layer: residency routing, admission control and adaptive
 # mounting over four nodes of the full-width paper model
 # ---------------------------------------------------------------------------
@@ -3264,9 +3504,12 @@ def phase_fleet(dev) -> dict:
     admission_limit=FLEET_ADMISSION)``, each node an ``AdaptiveLLMService``
     over its own paged ``TorchLLMService`` and ``BatchedLLMService(paged=
     True)``, driven by ``run_fleet`` on ``generate_workload(FLEET_SPEC)``
-    with one crash and restart (``FLEET_CHURN``). Every kernel launch is
-    attributed to the mount (or the warm-start prime) that made it.
-    Requires: no hung ticket, a flip up and a flip down, turns served on
+    with one crash and restart (``FLEET_CHURN``); then, the rush drained, one
+    turn to each node alone. Every kernel launch is attributed to the mount
+    (or the warm-start prime) that made it.
+    Requires: no hung ticket, a flip up in the rush, every node still on
+    its batched mount after the rush flipping back at its lone turn, turns
+    served on
     both mounts, K1, K2 and K3 launched, and at least FLEET_MIN_EQUAL
     batched-mount turns whose tokens equal a fresh single-stream kernel
     service's on the same context — a turn that differs must differ at a
@@ -3274,7 +3517,7 @@ def phase_fleet(dev) -> dict:
     LOGIT_TOL)."""
     import torch
     from repro_torch.configs import PAPER_QWEN15_0_5B
-    from repro_torch.edge import EdgeCluster
+    from repro_torch.edge import EdgeCluster, LLMClient
     from repro_torch.fleet import (
         AdaptiveLLMService,
         ChurnEvent,
@@ -3299,6 +3542,7 @@ def phase_fleet(dev) -> dict:
     mounts = {n: {"single": zero(), "batched": zero(), "prime": zero()} for n in FLEET_NODES}
     served = {n: {"single": 0, "batched": 0} for n in FLEET_NODES}
     flips = {n: [] for n in FLEET_NODES}
+    adaptive = {}
     batched_turns = []
 
     def attributed(nid, bucket, fn):
@@ -3347,6 +3591,7 @@ def phase_fleet(dev) -> dict:
         single.prime = attributed(nid, "prime", single.prime)
         batched.prime = attributed(nid, "prime", batched.prime)
         svc._maybe_flip = maybe_flip
+        adaptive[nid] = svc
         return svc
 
     cluster = EdgeCluster.build(
@@ -3364,18 +3609,34 @@ def phase_fleet(dev) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_run
     summary = res.summary()
-    total = {name: c.launches for name, c in counters.items()}
+    rush_served = {n: dict(v) for n, v in served.items()}
     ups = sum(f.count("batched") for f in flips.values())
+    # the rush drained: one turn to each node, alone. A node still on its
+    # batched mount must find its concurrency EWMA at or below the low band
+    # and flip back. Flips back during the rush depend on how its turns
+    # overlap, which the host's speed sets: on a card whose host took 68.7 ms
+    # a decode step (phase main) no node flipped back during it
+    still_batched = [n for n in FLEET_NODES if adaptive[n].mode == "batched"]
+    probe = LLMClient(cluster, model=model, max_new_tokens=8)
+    for n in FLEET_NODES:
+        r = probe.chat(f"{n}: one more question once the rush is over", n)
+        assert r.error is None, (n, r.error)
+    torch.cuda.synchronize()
+    back = [n for n in still_batched if adaptive[n].mode == "single"]
     downs = sum(f.count("single") for f in flips.values())
+    total = {name: c.launches for name, c in counters.items()}
+    log(f"fleet: after the rush {still_batched} on the batched mount; one turn each, alone: "
+        f"{back} flipped back")
     log(f"fleet: {summary['n_sessions']} sessions, {summary['n_turns']} turns in {wall_s:.2f} s "
         f"of wall: {json.dumps(summary)}")
-    log(f"fleet: flips per node {json.dumps(flips)}; turns per mount {json.dumps(served)}; "
+    log(f"fleet: flips per node {json.dumps(flips)}; turns per mount in the rush "
+        f"{json.dumps(rush_served)}; "
         f"sheds {summary['sheds']} requeues {summary['requeues']} failovers "
         f"{summary['failovers']}; launches per mount {json.dumps(mounts)}")
     assert res.hung_tickets == 0, summary
-    assert ups >= 1 and downs >= 1, flips
-    assert sum(s["single"] for s in served.values()) > 0, served
-    assert sum(s["batched"] for s in served.values()) > 0, served
+    assert ups >= 1 and downs >= 1 and back == still_batched, (flips, still_batched, back)
+    assert sum(s["single"] for s in rush_served.values()) > 0, rush_served
+    assert sum(s["batched"] for s in rush_served.values()) > 0, rush_served
     assert all(total[k] > 0 for k in ("chunked_prefill", "paged_attention", "shared_prefix")), \
         total
     assert total["flash_attention"] == total["decode_attention"] == 0, total
@@ -3415,7 +3676,8 @@ def phase_fleet(dev) -> dict:
         f"single-stream service: {n_equal} token-identical, the rest {json.dumps(differ)}")
     assert n_equal >= FLEET_MIN_EQUAL, checked
     out = {"summary": summary, "wall_s": wall_s, "flips": flips, "flips_up": ups,
-           "flips_down": downs, "turns_per_mount": served, "launches_per_mount": mounts,
+           "flips_down": downs, "batched_after_rush": still_batched, "flipped_back": back,
+           "turns_per_mount": rush_served, "launches_per_mount": mounts,
            "launches": total, "batched_turns": len(done), "batched_vs_single": checked,
            "spec": FLEET_SPEC, "admission_limit": FLEET_ADMISSION, "churn": FLEET_CHURN}
     del cluster, fresh, params
@@ -3559,9 +3821,21 @@ def main() -> int:
     chatglm3 = phase_gqa_model(dev, CHATGLM3_6B, CHATGLM3_LOGIT_REL)
     qwen2_vl = phase_gqa_model(dev, QWEN2_VL_7B, QWEN2_VL_LOGIT_REL, vision=True)
     gemma2 = phase_gemma2(dev)
+    from repro_torch.configs import NEMOTRON_4_340B
+
+    log(f"{NEMOTRON_4_340B.name}: {NEMOTRON_CUT}")
+    nemotron = phase_gqa_model(dev, NEMOTRON_4_340B.replace(n_layers=NEMOTRON_LAYERS),
+                               NEMOTRON_LOGIT_REL, f32_layers=NEMOTRON_F32_LAYERS)
+    musicgen = phase_musicgen(dev)
     # the GQA edges' bf16 errors count in each kernel's max_abs_err
     for kk in (k1, k2, k3, k4, k5):
         kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
+    # and the launches of this slice's phases in each kernel's count
+    for counts in (nemotron["paged"]["launches"], nemotron["dense"]["launches"],
+                   nemotron["batched"]["launches"], musicgen["dense"]["launches"],
+                   musicgen["paged"]["launches"]):
+        for kk in (k1, k2, k3, k4, k5):
+            kk["launches"] += counts.get(kk["name"], 0)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3583,6 +3857,8 @@ def main() -> int:
     print(json.dumps({"chatglm3_path": chatglm3}))
     print(json.dumps({"qwen2_vl_path": qwen2_vl}))
     print(json.dumps({"gemma2_path": gemma2}))
+    print(json.dumps({"nemotron_path": nemotron}))
+    print(json.dumps({"musicgen_path": musicgen}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -110,25 +110,40 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// One warp's 16 query rows in registers: Q as A fragments, the output
-// accumulator, and the running max (log2 domain) and partial sum of the
-// two rows (g and g + 8) this thread holds. The warp attends to KW keys of
-// each tile; the warps that share its rows take the tile's other keys, and
-// their states are merged at the end (park, then fold).
+// K/V tiles in flight in the prefill kernels' shared memory: four, but
+// three at D = 192, where four would not fit beside the Q rows (227 KB).
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 128 ? 3 : 4;
+}
+
+// One warp's 16 query rows: Q as A fragments, the output accumulator, and
+// the running max (log2 domain) and partial sum of the two rows (g and
+// g + 8) this thread holds. The warp attends to KW keys of each tile; the
+// warps that share its rows take the tile's other keys, and their states
+// are merged at the end (park, then fold). Q's fragments stay in registers
+// up to D = 128; at D = 192 they are read from the block's Q rows in shared
+// memory at every tile (ldmatrix), since 48 more registers beside the 96 of
+// the output accumulator would spill.
 template <int D, int KW>
 struct WarpRows {
   static_assert(KW % 16 == 0, "a warp's keys are whole 16-key steps");
-  uint32_t qf[D / 16][4];
+  static constexpr bool kQShared = D > 128;
+  uint32_t qf[kQShared ? 1 : D / 16][4];
+  uint32_t q_addr;  // kQShared: shared address of this lane's ldmatrix row of Q
   float o[D / 8][4];
   float m[2], l[2];
   int qp[2];  // query positions of rows g and g + 8
 
   // Q fragments of rows [16 * warp, 16 * warp + 16) of a tile in shared
-  // memory (row stride D + 8); zero the state.
+  // memory (row stride D + 8), or their address; zero the state.
   __device__ __forceinline__ void init(const __nv_bfloat16* q_s, int warp, int lane) {
     const __nv_bfloat16* base = q_s + (16 * warp + (lane & 15)) * (D + 8) + (lane >> 4) * 8;
+    q_addr = smem_addr(base);
+    if constexpr (!kQShared) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], smem_addr(base + kk * 16));
+      for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], smem_addr(base + kk * 16));
+    }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     m[0] = m[1] = kNegInf;
@@ -155,12 +170,19 @@ struct WarpRows {
         k_s + ((lane & 7) + ((lane >> 4) << 3)) * ST + ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQShared) {
+        ldmatrix_x4(a, q_addr + kk * 16 * (int)sizeof(__nv_bfloat16));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      }
 #pragma unroll
       for (int j = 0; j < KW / 16; ++j) {
         uint32_t b[4];
         ldmatrix_x4(b, smem_addr(kb + j * 16 * ST + kk * 16));
-        mma_bf16(s[2 * j], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * j + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * j], a, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], a, b[2], b[3]);
       }
     }
 

@@ -28,8 +28,9 @@
 //   block per (lane, KV head, tile of 64 rows of S*G): the G query heads of
 //   a KV head share the block, so each K/V row is read once for all of
 //   them. The rows are four groups of 16 with SPLIT warps on each group:
-//   every warp holds its 16 rows' Q fragments in registers and takes
-//   64 / SPLIT keys of each key tile, so that several warps per scheduler
+//   every warp holds its 16 rows' Q fragments in registers (at Dh 192 it
+//   reads them from shared memory at every tile, attention_mma.cuh) and
+//   takes 64 / SPLIT keys of each key tile, so that several warps per scheduler
 //   hide each other's latencies; the SPLIT softmax states of a row group
 //   merge at the end. SPLIT is 4 (512 threads) at Dh <= 64 when the grid
 //   has no more blocks than the card has SMs, else 2. The paper model's
@@ -38,7 +39,8 @@
 //   64-key tile spans 8, 4 or 1 pages at ps 8, 16 or 64: each 16-byte
 //   cp.async resolves table[b, t / ps] itself (the page ids are read one
 //   tile ahead), into padded shared memory (rows of Dh + 8, so ldmatrix is
-//   free of bank conflicts), four tiles in flight. Per tile, S = Q.K^T
+//   free of bank conflicts), four tiles in flight (three at Dh 192). Per
+//   tile, S = Q.K^T
 //   accumulates in f32 registers; scale, softcap and the mask apply per
 //   element; the online softmax (m = -1e30, never -inf; exponentials in
 //   base 2 on the SFU) reduces row max and sum over the lane quad; P is
@@ -47,8 +49,9 @@
 // - f32, the equivalence dtype, held to 1e-4 against the plain version:
 //   chunked_prefill_simt, the f32 FMA kernel. One block of 256 threads per
 //   (lane, KV head, tile of 64 rows), four threads per row, each keeping its
-//   row's query in f32 registers; K and V rows (each thread dereferences the
-//   table itself; 16-byte loads) in padded shared memory, 16 logits per
+//   row's query in f32 registers (in shared memory at Dh 192); K and V
+//   rows (each thread dereferences the table itself; 16-byte loads) in
+//   padded shared memory, 16 logits per
 //   thread per tile, max and sum combined by warp shuffles, P.V accumulated
 //   in f32 registers.
 
@@ -70,6 +73,9 @@ constexpr int kRows = 64;                    // query rows (of S*G) per block
 constexpr int kSubs = kThreads / kRows;      // threads per row
 constexpr int kKeys = 64;                    // keys per tile
 constexpr int kKeysPerSub = kKeys / kSubs;   // logits per thread per tile
+// each thread keeps its row's query in registers up to Dh 128; at Dh 192
+// (192 registers) the block's query rows live in shared memory instead
+__host__ __device__ constexpr bool simt_q_shared(int dh) { return dh > 128; }
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) chunked_prefill_simt(
@@ -84,12 +90,14 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_simt(
   constexpr int NC = DH / (4 * kSubs);  // float4 column chunks per thread
   constexpr int VN = Vec16<T>::N;
   constexpr int CPR = DH / VN;      // 16-byte chunks per K/V row
+  constexpr bool kQShared = simt_q_shared(DH);
 
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                 // kKeys * KS
   float* v_s = k_s + kKeys * KS;     // kKeys * KS
   float* p_s = v_s + kKeys * KS;     // kRows * PS
   int* key_ok_s = reinterpret_cast<int*>(p_s + kRows * PS);  // kKeys
+  float* q_s = reinterpret_cast<float*>(key_ok_s + kKeys);    // kQShared: kRows * KS
 
   const int b = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * kRows;
   const int tid = threadIdx.x, row = tid / kSubs, sub = tid % kSubs;
@@ -103,10 +111,17 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_simt(
   const int lo = window > 0 ? max(0, qp_min - window + 1) : 0;
   const size_t tok_stride = (size_t)KV * DH;
 
-  float q_reg[DH];
+  float q_reg[kQShared ? 1 : DH];
   const T* qrow = q + (((size_t)b * KV + h) * SG + r) * DH;
+  float* q_row_s = q_s + row * KS;
+  if constexpr (kQShared) {
+    // the row's four threads load a quarter each; read after the tile
+    // loop's first barrier
+    for (int d = sub * VN; d < DH; d += kSubs * VN) Vec16<T>::load(qrow + d, q_row_s + d);
+  } else {
 #pragma unroll
-  for (int d = 0; d < DH; d += VN) Vec16<T>::load(qrow + d, q_reg + d);
+    for (int d = 0; d < DH; d += VN) Vec16<T>::load(qrow + d, q_reg + d);
+  }
 
   float acc[4 * NC];
 #pragma unroll
@@ -155,8 +170,12 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_simt(
 #pragma unroll
         for (int c = 0; c < DH / 4; ++c) {
           const float4 kv = k4[c];
-          dot += q_reg[4 * c] * kv.x + q_reg[4 * c + 1] * kv.y +
-                 q_reg[4 * c + 2] * kv.z + q_reg[4 * c + 3] * kv.w;
+          float4 qv;
+          if constexpr (kQShared)
+            qv = reinterpret_cast<const float4*>(q_row_s)[c];
+          else
+            qv = make_float4(q_reg[4 * c], q_reg[4 * c + 1], q_reg[4 * c + 2], q_reg[4 * c + 3]);
+          dot += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
         }
         x = apply_softcap(dot * scale, softcap);
         ok_bits |= 1u << i;
@@ -219,7 +238,8 @@ cudaError_t launch_simt(const void* q, const void* pool_k, const void* pool_v,
                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kKeys * (DH + 4) +
                                        (size_t)kRows * (kKeys + 1)) +
-                      sizeof(int) * kKeys;
+                      sizeof(int) * kKeys +
+                      (simt_q_shared(DH) ? sizeof(float) * kRows * (DH + 4) : 0);
   auto kern = chunked_prefill_simt<float, DH>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -242,13 +262,13 @@ cudaError_t launch_simt(const void* q, const void* pool_k, const void* pool_v,
 // 64 rows per block in four row groups of 16; SPLIT warps on each row
 // group, each on its share of every key tile (their states merge at the
 // end), so that several warps per scheduler hide each other's latencies;
-// kStages tiles of K/V in flight.
+// mma::stages<D>() tiles of K/V in flight (kStages).
 constexpr int kRowsMma = 64;
-constexpr int kStages = 4;
 static_assert(kKeys == mma::kKeys, "the f32 and bf16 kernels share the 64-key tile");
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
+  constexpr int kStages = mma::stages<D>();
   return sizeof(__nv_bfloat16) * (kRowsMma + 2 * kStages * mma::kKeys) * (D + 8)  // Q, K, V
          + sizeof(int) * kStages * mma::kKeys;  // key positions per stage
 }
@@ -262,6 +282,7 @@ __global__ void __launch_bounds__(128 * SPLIT) chunked_prefill_mma(
     int window, float softcap, float scale) {
   using namespace mma;
   constexpr int NT = 128 * SPLIT, ROWS = kRowsMma, ST = D + 8, KW = kKeys / SPLIT;
+  constexpr int kStages = stages<D>();
   constexpr int CPR = D / 8, CHUNKS = kKeys * CPR;  // 16-byte chunks per K (or V) tile
   constexpr int U = (CHUNKS + NT - 1) / NT;          // ... per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -414,6 +435,7 @@ cudaError_t launch_mma(const void* q, const void* pool_k, const void* pool_v,
     case 32: return (int)LAUNCH<32>(REPRO_CHUNK_ARGS);       \
     case 64: return (int)LAUNCH<64>(REPRO_CHUNK_ARGS);       \
     case 128: return (int)LAUNCH<128>(REPRO_CHUNK_ARGS);     \
+    case 192: return (int)LAUNCH<192>(REPRO_CHUNK_ARGS);     \
     default: return (int)cudaErrorInvalidValue;               \
   }
 #define REPRO_CHUNK_ARGS \

@@ -18,12 +18,13 @@
 // one block's load latency, not by bandwidth.
 //
 // Design: a split walk (csrc/split_decode.cuh). One cluster of `splits`
-// blocks of 8 warps per (lane, KV head, row group); the host picks `splits`
+// blocks of 8 warps (fewer for K/V rows over 256 bytes: warps()) per
+// (lane, KV head, row group); the host picks `splits`
 // (kernels/decode_attention/kernel.py decode_plan): 16 clusters of 8 at
 // B = 1 for the paper model (256 slots per block: one 32-slot sub-tile per
 // warp), 32 of 4 for Zamba2, 128 of 1 at B = 8. The R <= RG query rows of
 // a row group go together: a block holds at most kMaxRowsDh / Dh rows, so
-// a KV head with G * Dh above that (chatglm3's 2048) is cut into
+// a KV head with G * Dh above that (chatglm3's 2048, nemotron's 2304) is cut into
 // ceil(G / RG) row groups, each its own cluster, each reading the K/V
 // rows (the second time mostly from L2), as K1. Each lane reads its
 // slot's kv_pos and kv_valid a sub-tile ahead; a sub-tile with no unmasked slot is skipped whole
@@ -44,11 +45,12 @@ namespace {
 constexpr int kMaxRowsDh = 1024;            // G * Dh per block
 constexpr int kMaxPairs = kMaxRowsDh / 64;  // accumulator pairs per lane
 // warps per block: 8, so that a 256-slot split is one sub-tile per warp,
-// but 4 for rows over 256 bytes (f32 at Dh 112 and 128), whose staged K/V
-// rows would not fit 8 warps' shared memory
+// but 4 for rows over 256 bytes (f32 at Dh 112 and 128, bf16 at Dh 192)
+// and 2 for rows over 512 (f32 at Dh 192), whose staged K/V rows would not
+// fit more warps' shared memory
 template <typename T, int DH>
 constexpr int warps() {
-  return DH * (int)sizeof(T) > 256 ? 4 : 8;
+  return DH * (int)sizeof(T) > 512 ? 2 : DH * (int)sizeof(T) > 256 ? 4 : 8;
 }
 
 template <typename T, int DH, int kWarps = warps<T, DH>(), int kThreads = 32 * kWarps>
@@ -154,6 +156,7 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
     REPRO_DECODE_CASE(64)
     REPRO_DECODE_CASE(112)  // Zamba2's shared attention block
     REPRO_DECODE_CASE(128)
+    REPRO_DECODE_CASE(192)  // nemotron-4-340b
     default:
       return cudaErrorInvalidValue;
   }

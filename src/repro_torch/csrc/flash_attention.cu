@@ -23,8 +23,10 @@
 //   mma.sync.m16n8k16 (bf16 operands, f32 sums; attention_mma.cuh). One
 //   block per (lane, query head, tile of 64 query rows), the rows in four
 //   groups of 16 with SPLIT warps on each group: every warp holds its 16
-//   rows' Q fragments in registers and takes 64 / SPLIT keys of each key
-//   tile, so that several warps per scheduler hide each other's latencies;
+//   rows' Q fragments in registers (at Dh 192 it reads them from shared
+//   memory at every tile, attention_mma.cuh) and takes 64 / SPLIT keys of
+//   each key tile, so that several warps per scheduler hide each other's
+//   latencies;
 //   the SPLIT softmax states of a row group merge at the end. SPLIT is 4
 //   (512 threads) at Dh <= 64 when the grid has no more blocks than the
 //   card has SMs (a 256-token append: 64 blocks), else 2 (two blocks share
@@ -34,7 +36,8 @@
 //   tile: an exact skip, so a causal prefill walks only the lower triangle
 //   and a chunk append only the valid prefix. Live K/V tiles and their
 //   positions come in through cp.async into padded shared memory (rows of
-//   Dh + 8, so ldmatrix is free of bank conflicts), four tiles in flight.
+//   Dh + 8, so ldmatrix is free of bank conflicts), four tiles in flight
+//   (three at Dh 192).
 //   Per tile, S = Q.K^T accumulates in f32 registers; scale, softcap and
 //   the mask apply per element; the online softmax (m = -1e30, never -inf;
 //   exponentials in base 2 on the SFU) reduces row max and sum over the
@@ -44,7 +47,8 @@
 // - f32, the equivalence dtype, held to 1e-4 against the plain version:
 //   flash_attention_simt, the f32 FMA kernel. One block of 256 threads per
 //   (lane, query head, tile of 64 query rows), four threads per row, each
-//   keeping its row's query in f32 registers, with the same exact tile skip;
+//   keeping its row's query in f32 registers (in shared memory at Dh 192),
+//   with the same exact tile skip;
 //   K and V rows in padded shared memory, 16 logits per thread per tile, max
 //   and sum combined by warp shuffles, P.V accumulated in f32 registers.
 
@@ -66,6 +70,9 @@ constexpr int kRows = 64;                    // query rows per block
 constexpr int kSubs = kThreads / kRows;      // threads per row
 constexpr int kKeys = 64;                    // keys per tile
 constexpr int kKeysPerSub = kKeys / kSubs;   // logits per thread per tile
+// each thread keeps its row's query in registers up to Dh 128; at Dh 192
+// (192 registers) the block's query rows live in shared memory instead
+__host__ __device__ constexpr bool simt_q_shared(int dh) { return dh > 128; }
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) flash_attention_simt(
@@ -79,6 +86,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt(
   constexpr int NC = DH / (4 * kSubs);  // float4 column chunks per thread
   constexpr int VN = Vec16<T>::N;
   constexpr int CPR = DH / VN;      // 16-byte chunks per K/V row
+  constexpr bool kQShared = simt_q_shared(DH);
 
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                 // kKeys * KS
@@ -86,6 +94,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt(
   float* p_s = v_s + kKeys * KS;     // kRows * PS
   int* kp_s = reinterpret_cast<int*>(p_s + kRows * PS);  // kKeys positions
   int* ok_s = kp_s + kKeys;                                // kKeys validity
+  float* q_s = reinterpret_cast<float*>(ok_s + kKeys);     // kQShared: kRows * KS
   __shared__ int qmin_s, qmax_s;
 
   const int b = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * kRows;
@@ -108,10 +117,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt(
   __syncthreads();
   const int qmin = qmin_s, qmax = qmax_s;
 
-  float q_reg[DH];
+  float q_reg[kQShared ? 1 : DH];
   const T* qrow = q + (((size_t)b * S + r) * H + h) * DH;
+  float* q_row_s = q_s + row * KS;
+  if constexpr (kQShared) {
+    // the row's four threads load a quarter each; read after the tile
+    // loop's first barrier
+    for (int d = sub * VN; d < DH; d += kSubs * VN) Vec16<T>::load(qrow + d, q_row_s + d);
+  } else {
 #pragma unroll
-  for (int d = 0; d < DH; d += VN) Vec16<T>::load(qrow + d, q_reg + d);
+    for (int d = 0; d < DH; d += VN) Vec16<T>::load(qrow + d, q_reg + d);
+  }
 
   float acc[4 * NC];
 #pragma unroll
@@ -167,8 +183,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt(
 #pragma unroll
         for (int c = 0; c < DH / 4; ++c) {
           const float4 kv = k4[c];
-          dot += q_reg[4 * c] * kv.x + q_reg[4 * c + 1] * kv.y +
-                 q_reg[4 * c + 2] * kv.z + q_reg[4 * c + 3] * kv.w;
+          float4 qv;
+          if constexpr (kQShared)
+            qv = reinterpret_cast<const float4*>(q_row_s)[c];
+          else
+            qv = make_float4(q_reg[4 * c], q_reg[4 * c + 1], q_reg[4 * c + 2], q_reg[4 * c + 3]);
+          dot += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
         }
         x = apply_softcap(dot * scale, softcap);
         ok_bits |= 1u << i;
@@ -230,7 +250,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, const void*
                         float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kKeys * (DH + 4) +
                                        (size_t)kRows * (kKeys + 1)) +
-                      sizeof(int) * 2 * kKeys;
+                      sizeof(int) * 2 * kKeys +
+                      (simt_q_shared(DH) ? sizeof(float) * kRows * (DH + 4) : 0);
   auto kern = flash_attention_simt<float, DH>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -253,13 +274,13 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, const void*
 // 64 rows per block in four row groups of 16; SPLIT warps on each row
 // group, each on its share of every key tile (their states merge at the
 // end), so that several warps per scheduler hide each other's latencies;
-// kStages tiles of K/V in flight.
+// mma::stages<D>() tiles of K/V in flight (kStages).
 constexpr int kRowsMma = 64;
-constexpr int kStages = 4;
 static_assert(kKeys == mma::kKeys, "the f32 and bf16 kernels share the 64-key tile");
 
 template <int D>
 constexpr size_t mma_smem_bytes(int n_tiles) {
+  constexpr int kStages = mma::stages<D>();
   return sizeof(__nv_bfloat16) * (kRowsMma + 2 * kStages * mma::kKeys) * (D + 8)  // Q, K, V
          + sizeof(int) * 2 * kStages * mma::kKeys  // kv_pos, kv_valid per stage
          + sizeof(int) * (size_t)n_tiles            // the live tiles, in order
@@ -275,6 +296,7 @@ __global__ void __launch_bounds__(128 * SPLIT) flash_attention_mma(
     float softcap, float scale) {
   using namespace mma;
   constexpr int NT = 128 * SPLIT, ROWS = kRowsMma, ST = D + 8, KW = kKeys / SPLIT;
+  constexpr int kStages = stages<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // ROWS rows
   __nv_bfloat16* k_s = q_s + ROWS * ST;                               // kStages tiles
@@ -447,6 +469,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
     case 64: return (int)LAUNCH<64>(REPRO_FLASH_ARGS);                          \
     case 112: return (int)LAUNCH<112>(REPRO_FLASH_ARGS); /* Zamba2's shared block */ \
     case 128: return (int)LAUNCH<128>(REPRO_FLASH_ARGS);                        \
+    case 192: return (int)LAUNCH<192>(REPRO_FLASH_ARGS); /* nemotron-4-340b */   \
     default: return (int)cudaErrorInvalidValue;                                  \
   }
 #define REPRO_FLASH_ARGS \

@@ -26,11 +26,12 @@
 // one block's load latency, not by bandwidth.
 //
 // Design: a split walk (csrc/split_decode.cuh), as K5's. One cluster of
-// `splits` blocks of 8 warps (4 for f32 rows over 256 bytes) per (lane,
-// KV head, row group); the R <= RG query rows of a row group go together.
-// A block holds at most kMaxRowsDh / Dh rows (a lane's 2 * kMaxPairs f32
-// accumulators), so a KV head whose G * Dh exceeds that (chatglm3's
-// 16 x 128 = 2048) is cut into ceil(G / RG) row groups, each its own
+// `splits` blocks of 8 warps (fewer for K/V rows over 256 bytes: warps())
+// per (lane, KV head, row group); the R <= RG query rows of a row group go
+// together. A block holds at most kMaxRowsDh / Dh rows (a lane's
+// 2 * kMaxPairs f32 accumulators), so a KV head whose G * Dh exceeds that
+// (chatglm3's 16 x 128 = 2048: two groups of 8; nemotron's 12 x 192 =
+// 2304: three of 4) is cut into ceil(G / RG) row groups, each its own
 // cluster: K/V is then read once per row group, the second time mostly
 // from L2 (kernels/paged_attention/kernel.py row_groups picks RG). The host
 // picks `splits` from B * KV and the widest walk (MP - start) * ps
@@ -55,11 +56,12 @@ namespace {
 
 constexpr int kMaxRowsDh = 1024;            // G * Dh per block
 constexpr int kMaxPairs = kMaxRowsDh / 64;  // accumulator pairs per lane
-// warps per block: 8, but 4 for rows over 256 bytes (f32 at Dh 128), whose
-// staged K/V rows would not fit 8 warps' shared memory
+// warps per block: 8, but 4 for rows over 256 bytes (f32 at Dh
+// 128, bf16 at Dh 192) and 2 for rows over 512 (f32 at Dh 192), whose
+// staged K/V rows would not fit more warps' shared memory
 template <typename T, int DH>
 constexpr int warps() {
-  return DH * (int)sizeof(T) > 256 ? 4 : 8;
+  return DH * (int)sizeof(T) > 512 ? 2 : DH * (int)sizeof(T) > 256 ? 4 : 8;
 }
 
 template <typename T, int DH, int kWarps = warps<T, DH>(), int kThreads = 32 * kWarps>
@@ -183,6 +185,7 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* pool_k, const void* p
     REPRO_PAGED_CASE(32)
     REPRO_PAGED_CASE(64)
     REPRO_PAGED_CASE(128)
+    REPRO_PAGED_CASE(192)  // nemotron-4-340b
     default:
       return cudaErrorInvalidValue;
   }

@@ -77,7 +77,10 @@ struct Smem {
   // row stride (T) of the staged K/V rows: 16 bytes of padding puts the 8
   // lanes of a 16-byte access phase on 8 different bank groups
   static constexpr int VS = DH + 16 / (int)sizeof(T);
-  static constexpr int kRowFloats = (3 * NW + 2 + 3) / 4 * 4;  // wm..bl per row, padded
+  // wm..bl per row, padded: also room for cluster_merge's S + 3 floats per
+  // row (blocks of 2 warps)
+  static constexpr int kRowFloats =
+      ((3 * NW + 2 > kMaxSplits + 3 ? 3 * NW + 2 : kMaxSplits + 3) + 3) / 4 * 4;
   float* q;       // R * DH   query rows
   float* bacc;    // R * DH   the block's merged acc
   float* wm;      // NW * R   each warp's running max
@@ -555,7 +558,7 @@ __device__ __forceinline__ void cluster_merge(const Smem<T, DH, NW>& sm, int R,
     }
     // per row: the merged m and l, and the scale e^(m_s - m) of the seed
     // (slot 0) and of each rank (slots 1..S), in the free per-warp rows
-    // wm.. ((S + 3) R <= 3 NW R floats)
+    // wm.. ((S + 3) R <= kRowFloats R floats)
     const float* rx = sm.rx;
     float* sc = sm.wm;
     for (int r = tid; r < R; r += NT) {

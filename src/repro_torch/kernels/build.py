@@ -114,7 +114,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "repro_paged_attention": [_VP] * 11 + [_I] * 11 + [_F, _F, _I, _VP],
     "repro_chunked_prefill": [_VP] * 7 + [_I] * 9 + [_F, _F, _I, _VP],
-    "repro_shared_prefix": [_VP] * 8 + [_I] * 10 + [_F, _F, _I, _VP],
+    "repro_shared_prefix": [_VP] * 8 + [_I] * 11 + [_F, _F, _I, _VP],
     "repro_flash_attention": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
     "repro_decode_attention": [_VP] * 7 + [_I] * 8 + [_F, _F, _I, _VP],
     "repro_ssd_chunk": [_VP] * 8 + [_I] * 7 + [_VP],

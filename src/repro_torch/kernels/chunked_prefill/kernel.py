@@ -19,6 +19,7 @@ import torch
 from ..build import DTYPE_CODES, check, load_library, require, stream_ptr
 
 WHERE = "chunked_prefill_cuda"
+HEAD_DIMS = (16, 32, 64, 128, 192)
 
 
 def chunked_prefill_cuda(
@@ -55,7 +56,7 @@ def chunked_prefill_cuda(
                     ("page_table", page_table), ("page_bound", page_bound),
                     ("p0", p0)):
         require(WHERE, t.is_contiguous(), f"{name} must be contiguous")
-    require(WHERE, dh in (16, 32, 64, 128), f"head dim {dh} not in (16, 32, 64, 128)")
+    require(WHERE, dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
         require(WHERE, t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)

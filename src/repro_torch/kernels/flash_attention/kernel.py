@@ -20,7 +20,7 @@ import torch
 from ..build import DTYPE_CODES, check, load_library, require, stream_ptr
 
 WHERE = "flash_attention_cuda"
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
 def check_linear_kv(where: str, q: torch.Tensor, k, v, named_ints) -> None:

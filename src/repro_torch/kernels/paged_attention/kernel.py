@@ -20,24 +20,25 @@ from ..build import DTYPE_CODES, check, load_library, require, stream_ptr
 
 WHERE = "paged_attention_cuda"
 WHERE_SHARED = "shared_prefix_cuda"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 
 SPLIT_TILE = 128      # tokens per unit of a split plan (split_decode.cuh kTile)
 MAX_SPLITS = 8        # the portable thread-block cluster size
 TARGET_BLOCKS = 128   # a wave of the H100's 132 SMs, as power-of-two grids reach it
 K2_MAX_LANES = 64     # lanes per K2 block (shared_prefix.cu kMaxLanes)
-K2_MAX_ROWS_DH = 2048  # lanes * G * Dh per K2 block (kMaxRowsDh)
+K2_MAX_ROWS_DH = 2048  # lanes * rows * Dh per K2 block (kMaxRowsDh)
 BLOCK_ROWS_DH = 1024  # query rows * Dh per K1 / K5 block (their kMaxRowsDh)
-MAX_G_DH = 2048       # G * Dh that K1 and K5 take (two row groups at most)
+MAX_G_DH = 3072       # G * Dh that K1, K2 and K5 take: at most four row groups
+                      # (nemotron's 12 x 192 = 2304: three in K1 / K5, two in K2)
 
 
-def row_groups(g: int, dh: int) -> Tuple[int, int]:
-    """K1's and K5's cut of a KV head's G query rows: ``(groups, rows per
-    group)``, the fewest groups of at most ``BLOCK_ROWS_DH / dh`` rows each.
-    Each group is its own cluster of the launch and reads the KV head's
-    K/V rows itself."""
+def row_groups(g: int, dh: int, limit: int = BLOCK_ROWS_DH) -> Tuple[int, int]:
+    """The cut of a KV head's G query rows into ``(groups, rows per
+    group)``: the fewest groups of at most ``limit / dh`` rows each (K1's
+    and K5's ``BLOCK_ROWS_DH``; K2's ``K2_MAX_ROWS_DH``). Each group is its
+    own cluster of the launch and reads the KV head's K/V rows itself."""
     n = 1
-    while -(-g // n) * dh > BLOCK_ROWS_DH:
+    while -(-g // n) * dh > limit:
         n += 1
     return n, -(-g // n)
 
@@ -64,13 +65,16 @@ def split_ranges(n_tokens: int, splits: int) -> List[Tuple[int, int]]:
 
 def shared_prefix_plan(b: int, kvh: int, g: int, dh: int,
                        n_tokens: int) -> Tuple[int, int, Tuple[int, int, int]]:
-    """K2's launch: ``(lanes per block, splits, grid)``. A block holds as
-    many lanes as keep ``lanes * G * Dh <= K2_MAX_ROWS_DH``; the grid is
-    ``(splits, KV, lane tiles)`` with clusters of ``(splits, 1, 1)``."""
-    lanes = min(b, K2_MAX_LANES, max(1, K2_MAX_ROWS_DH // (g * dh)))
+    """K2's launch: ``(lanes per block, splits, grid)``. A KV head's G rows
+    are cut into ``row_groups(G, Dh, K2_MAX_ROWS_DH)`` (one group while
+    ``G * Dh <= 2048``), and a block holds as many lanes as keep ``lanes *
+    rows * Dh <= K2_MAX_ROWS_DH``; the grid is ``(splits, KV x groups, lane
+    tiles)`` with clusters of ``(splits, 1, 1)``."""
+    n_groups, rows = row_groups(g, dh, K2_MAX_ROWS_DH)
+    lanes = min(b, K2_MAX_LANES, max(1, K2_MAX_ROWS_DH // (rows * dh)))
     tiles = -(-b // lanes)
-    splits = plan_splits(kvh * tiles, n_tokens)
-    return lanes, splits, (splits, kvh, tiles)
+    splits = plan_splits(kvh * n_groups * tiles, n_tokens)
+    return lanes, splits, (splits, kvh * n_groups, tiles)
 
 
 def paged_plan(b: int, kvh: int, mp: int, ps: int, start: int = 0,
@@ -190,14 +194,16 @@ def shared_prefix_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2: f32 ``(acc, m, l)`` of shapes (B, KV, G, Dh), (B, KV, G, 1)
     and (B, KV, G, 1) — every lane's partial softmax state over the run. One
-    cluster launch, planned by ``shared_prefix_plan``."""
+    cluster launch, planned by ``shared_prefix_plan`` over ``row_groups(G,
+    Dh, K2_MAX_ROWS_DH)``."""
     b, kvh, g, dh = q.shape
     p, ps = pool_k.shape[0], pool_k.shape[1]
     s = shared_pages.shape[0]
     _check_q_and_pools(WHERE_SHARED, q, pool_k, pool_v)
     _check_ints(WHERE_SHARED, q, (("shared_pages", shared_pages, (s,)), ("q_pos", q_pos, (b,))))
     require(WHERE_SHARED, s > 0 and b > 0, f"empty run ({s} pages) or batch ({b})")
-    require(WHERE_SHARED, g * dh <= K2_MAX_ROWS_DH, f"G * Dh = {g * dh} exceeds 2048")
+    require(WHERE_SHARED, g * dh <= MAX_G_DH, f"G * Dh = {g * dh} exceeds {MAX_G_DH}")
+    rows = row_groups(g, dh, K2_MAX_ROWS_DH)[1]
     lanes, splits, _ = shared_prefix_plan(b, kvh, g, dh, s * ps)
     acc = torch.empty((b, kvh, g, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((b, kvh, g, 1), dtype=torch.float32, device=q.device)
@@ -205,7 +211,7 @@ def shared_prefix_cuda(
     err = load_library().repro_shared_prefix(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), shared_pages.data_ptr(),
         q_pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, kvh, g, dh, p, ps, s, lanes, splits, int(window), float(softcap),
+        b, kvh, g, rows, dh, p, ps, s, lanes, splits, int(window), float(softcap),
         1.0 / (dh ** 0.5), DTYPE_CODES[q.dtype], stream_ptr(q),
     )
     check(err, "repro_shared_prefix")

@@ -9,13 +9,15 @@ flags and one more, ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m  # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-340b --device cpu
 
 Without ``--arch`` every node runs the analytic ``EchoLLMService`` (no
 device work). With ``--arch`` every node gets its own ``TorchLLMService``
 (its own session pool) over one shared copy of the ``.reduced()`` model's
 weights, served through the port's kernels (``attn_impl="cuda"``), on
 ``--device`` (default ``cuda``; without a GPU that raises
-unless ``--device cpu`` is given).
+unless ``--device cpu`` is given). As in JAX, an audio model (musicgen)
+is not served: its engine takes token-id lists, not codebook frames.
 """
 
 from __future__ import annotations

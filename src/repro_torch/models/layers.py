@@ -170,36 +170,43 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Params:
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            "audio codebooks are not ported yet (ROADMAP, Queue 1 item 8)"
-        )
+    """The token table (V, D) and, untied, the head (D, V); an audio model
+    with K > 1 codebooks (musicgen) has a (K, V, D) table and a (D, K * V)
+    head, as in JAX."""
     dt = dtype_of(cfg.param_dtype)
-    v, d = cfg.vocab_size, cfg.d_model
+    v, d, n_cb = cfg.vocab_size, cfg.d_model, cfg.n_codebooks
     p: Params = {
-        "tok": init_normal((v, d), 0.02, dt, gen, device),
+        "tok": init_normal((n_cb, v, d) if n_cb > 1 else (v, d), 0.02, dt, gen, device),
         "final_norm": init_rms_norm(d, dt, device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = init_normal((d, v), 0.02, dt, gen, device)
+        p["lm_head"] = init_normal((d, n_cb * v) if n_cb > 1 else (d, v), 0.02, dt, gen,
+                                   device)
     return p
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens: (B, S) int ids."""
+    """tokens: (B, S) int ids, or (B, S, K) for K > 1 codebooks, whose K
+    embeddings are summed in the table's dtype, k = 0..K-1 (JAX's order)."""
     if cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            "audio codebooks are not ported yet (ROADMAP, Queue 1 item 8)"
-        )
+        out = p["tok"][0][tokens[..., 0].long()]
+        for k in range(1, cfg.n_codebooks):
+            out = out + p["tok"][k][tokens[..., k].long()]
+        return out
     return p["tok"][tokens.long()]
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, V), or (B, S, K, V) for K > 1 codebooks (codebook-major
+    head columns; tied embeddings read codebook 0's table)."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ p["tok"].t()
+        table = p["tok"] if cfg.n_codebooks <= 1 else p["tok"][0]
+        logits = x @ table.t()
     else:
         logits = x @ p["lm_head"]
+    if cfg.n_codebooks > 1:
+        logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks, cfg.vocab_size)
     return softcap(logits, cfg.logit_softcap)
 
 

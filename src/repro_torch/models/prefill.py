@@ -109,7 +109,7 @@ def _pack_attn_cache(
 def prefill(
     params: Dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,                         # (B,S)
+    tokens: torch.Tensor,                         # (B,S), or (B,S,K) audio
     max_len: int,
     positions: Optional[torch.Tensor] = None,     # (B,S), or (3,B,S) for mrope
     patch_embeds: Optional[torch.Tensor] = None,  # (B,P,D) VLM stub frontend
@@ -118,7 +118,8 @@ def prefill(
 ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
     """Full prefill of a sequence into fresh caches
     (``repro.models.prefill.prefill``): returns (last-position logits
-    (B,V), caches, next_pos (B,)). ``positions`` default to 0..S-1 (every
+    (B,V), or (B,K,V) for K audio codebooks, caches, next_pos (B,)).
+    ``positions`` default to 0..S-1 (every
     M-RoPE stream the same), and a VLM's ``patch_embeds`` overwrite the
     first rows of the embeddings, as in ``forward_full``. Attention K/V
     fill slots [0, S) of ``max_len``-slot full caches and the rest stay
@@ -139,7 +140,7 @@ def prefill(
     real ones (ROADMAP, Queue 3 R7). With the kernels, attention is K4 and
     every mamba layer's SSD is K6."""
     groups = layer_groups(cfg)
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     dev = tokens.device
     idx = torch.arange(s, dtype=torch.int32, device=dev)
     if true_len is not None:
@@ -247,7 +248,7 @@ def prefill_append(
     params: Dict,
     cfg: ModelConfig,
     caches: List[Cache],
-    tokens: torch.Tensor,                       # (B,S) new-token chunk
+    tokens: torch.Tensor,                       # (B,S) new-token chunk, or (B,S,K)
     p0: int,                                    # every lane's start offset
     true_len: Optional[torch.Tensor] = None,    # (B,) real chunk lengths
 ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
@@ -257,14 +258,14 @@ def prefill_append(
     place: K/V land in slots ``[p0, p0 + S)`` (slots past the cache dropped),
     ``kv_pos`` is extended (padded rows write -1), and the chunk attends
     against every prior valid slot — a returning session computes only its
-    new tokens. Returns (last-valid-position logits (B,V), caches,
+    new tokens. Returns (last-valid-position logits (B,V) or (B,K,V), caches,
     next_pos (B,)). A caller that must keep the caches it passes (a pool
     entry) passes a copy. With the kernels, attention is K4."""
     if not supports_append(cfg):
         raise NotImplementedError(
             f"prefill_append requires full-cache dense/moe groups ({cfg.name})"
         )
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     dev = tokens.device
     idx = torch.arange(s, dtype=torch.int32, device=dev)
     q_pos = (p0 + idx)[None, :].expand(b, s)                           # (B,S)
@@ -325,7 +326,7 @@ def prefill_chunk_paged(
     cfg: ModelConfig,
     pools: List[Cache],          # per group: {"k","v"} (L, P, ps, KV, Dh)
     page_table: torch.Tensor,    # (B, MP) physical page ids per lane
-    tokens: torch.Tensor,        # (B, S) prompt chunk (bucketed)
+    tokens: torch.Tensor,        # (B, S) prompt chunk (bucketed), or (B, S, K)
     p0: torch.Tensor,            # (B,) absolute position of chunk row 0
     true_len: torch.Tensor,      # (B,) real chunk lengths
     n_skip: int = 0,
@@ -336,14 +337,14 @@ def prefill_chunk_paged(
     ``[0, p0 + true_len)``. ``n_skip`` leading pages are read-only shared
     pages (writes below ``n_skip * page_size`` are dropped). Rows beyond
     ``true_len`` are bucket padding. Returns the logits at row
-    ``true_len - 1``, shape (B, V). With the kernels each layer attends
-    through the page table (K3); the reference path gathers the stack's
+    ``true_len - 1``, shape (B, V) (or (B, K, V)). With the kernels each
+    layer attends through the page table (K3); the reference path gathers the stack's
     pages once, before any layer writes."""
     if not supports_append(cfg):
         raise NotImplementedError(
             f"prefill_chunk_paged requires full-cache dense/moe groups ({cfg.name})"
         )
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     idx = torch.arange(s, dtype=torch.int32, device=tokens.device)
     p0 = p0.to(torch.int32)
     true_len = true_len.to(torch.int32)

@@ -71,8 +71,9 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
     L/2 (local, global) layer pairs for ``local_global``, ``"zamba"`` groups
     (then any remainder of mamba layers) for the zamba hybrid, one
     ``"mamba"`` group for an SSM, one ``"moe"`` group for a decoder with
-    experts, one ``"dense"`` group for the other uniform decoders. Audio
-    backbones are not ported yet and raise."""
+    experts, one ``"dense"`` group for the other uniform decoders (an audio
+    backbone, musicgen, among them). Any other layer pattern or hybrid is
+    not ported and raises."""
     if cfg.layer_pattern == "local_global":
         assert cfg.n_layers % 2 == 0, "local_global needs even layer count"
         return [GroupSpec("gemma_pair", cfg.n_layers // 2)]
@@ -83,11 +84,10 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
         if rem:
             groups.append(GroupSpec("mamba", rem))
         return groups
-    if cfg.layer_pattern != "uniform" or cfg.arch_type in ("hybrid", "audio"):
+    if cfg.layer_pattern != "uniform" or cfg.arch_type == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: only uniform dense, VLM and MoE decoders, gemma2's "
-            "local/global pairs, SSMs and the zamba hybrid are ported (ROADMAP, "
-            "Queue 1 item 8)"
+            f"{cfg.name}: only uniform dense, VLM, audio and MoE decoders, gemma2's "
+            "local/global pairs, SSMs and the zamba hybrid are ported"
         )
     if cfg.arch_type == "ssm":
         return [GroupSpec("mamba", cfg.n_layers)]
@@ -228,18 +228,19 @@ def default_positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
 def forward_full(
     params: Dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,                         # (B,S)
+    tokens: torch.Tensor,                         # (B,S), or (B,S,K) audio
     positions: Optional[torch.Tensor] = None,     # (B,S), or (3,B,S) for mrope
     patch_embeds: Optional[torch.Tensor] = None,  # (B,P,D) VLM stub frontend
     seq_valid: Optional[torch.Tensor] = None,     # (B,S) bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for inference (``repro.models.transformer.
-    forward_full``): returns (logits (B,S,V), aux loss (f32): the sum of the
+    forward_full``): returns (logits (B,S,V), or (B,S,K,V) for K audio
+    codebooks; aux loss (f32): the sum of the
     moe layers' Switch losses, 0 without them). ``positions`` default to
     0..S-1 (every M-RoPE stream the same); a VLM's ``patch_embeds``
     overwrite the first rows of the embeddings. With the kernels, attention
     is K4 and every mamba layer's SSD is K6."""
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, tokens.device)
     x = embed_inputs(params, cfg, tokens, patch_embeds)
@@ -359,13 +360,14 @@ def decode_step(
     params: Dict,
     cfg: ModelConfig,
     caches: List[Cache],         # per group: see make_decode_caches
-    tokens: torch.Tensor,        # (B, 1)
+    tokens: torch.Tensor,        # (B, 1), or (B, 1, K) audio
     pos: torch.Tensor,           # (B,) absolute position of this token
 ) -> Tuple[torch.Tensor, List[Cache]]:
     """serve_step against full caches, ring caches and SSM state
     (``repro.models.transformer.decode_step``): returns (logits (B, 1, V),
-    caches). The token's K/V and position land in ``caches`` in place, at
-    slot ``min(pos, T - 1)`` of a full cache (JAX clamps: the full-width
+    or (B, 1, K, V) for K audio codebooks, caches). The token's K/V and
+    position land in ``caches`` in place, at slot ``min(pos, T - 1)`` of a
+    full cache (JAX clamps: the full-width
     server decodes its empty lanes too) or ``pos % T`` of a ring (a gemma
     pair's local layers; every attention layer of the sliding-window
     variant); ``kv_pos`` is updated once per cache, before the layer loop;
@@ -476,12 +478,13 @@ def decode_step_paged(
     pools: List[Cache],          # per group: {"k","v"} (L, P, ps, KV, Dh)
     page_table: torch.Tensor,    # (B, MP) physical page ids per lane
     kv_pos: torch.Tensor,        # (B, MP*ps) slot positions, updated in place
-    tokens: torch.Tensor,        # (B, 1)
+    tokens: torch.Tensor,        # (B, 1), or (B, 1, K) audio
     pos: torch.Tensor,           # (B,) absolute position of this token
     shared_pages: Optional[torch.Tensor] = None,  # (S,) common leading pages
 ) -> torch.Tensor:
     """serve_step against a paged KV pool (``repro.models.transformer.
-    decode_step_paged``): returns the logits (B, 1, V). The token's K/V land
+    decode_step_paged``): returns the logits (B, 1, V) (or (B, 1, K, V)).
+    The token's K/V land
     in ``pools`` and its position in ``kv_pos``, both in place; a lane whose
     position is at or past the table's width (at capacity, or pushed there
     by the batched server for a lane that must not decode) has both

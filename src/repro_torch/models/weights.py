@@ -9,7 +9,8 @@ expert stacks and (L, D, E) router into per-layer (E, D, F) and (D, E); a
 gemma_pair group's ``{"local": stack, "global": stack}`` into a list of
 ``{"local": layer, "global": layer}`` pairs; a zamba group's two leading
 axes, (n_groups, period), into a list of lists), and a zamba hybrid's
-``shared_attn`` block crosses as one dict.
+``shared_attn`` block crosses as one dict; an audio model's (K, V, D)
+token table and (D, K * V) head cross as they are.
 bf16 arrays (numpy dtype ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses) cross through a 16-bit integer view and come
 out bit-exact.

@@ -113,6 +113,7 @@ def test_continuation_ref_matches_pallas(window):
 MATRIX = [
     (8, 4, 4, 16, 1), (8, 8, 2, 32, 3), (8, 4, 1, 32, 3),
     (16, 4, 4, 16, 3), (16, 8, 2, 32, 1), (16, 4, 1, 32, 1),
+    (16, 12, 1, 192, 3),   # nemotron's G = 12 at d_head 192
 ]
 
 

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions over the shapes
-the kernels accept — page sizes 8/16/64, head dims 16-128 (and Zamba2's
-112 for K4/K5), MHA/GQA/MQA, f32 and bf16, window x softcap, ragged and
-empty lanes, chunk boundaries; the SSD chunk kernel (K6) over chunks
+the kernels accept — page sizes 8/16/64, head dims 16-128 and 192
+(nemotron's; and Zamba2's 112 for K4/K5), MHA/GQA/MQA, f32 and bf16,
+window x softcap, ragged and empty lanes, chunk boundaries; the SSD chunk kernel (K6) over chunks
 64/128, state dims 16-128, head dims 32/64, with and without an initial
 state, and large decays.
 K3 and K4 in bf16 run on the tensor cores and in f32 on the FMA units:
@@ -61,8 +61,9 @@ def _paged(dev, lens, ps, H, KV, Dh, dtype, seed=0):
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
-                (28, 4, 128), (32, 16, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
+                (28, 4, 128), (32, 16, 128), (24, 2, 192), (5, 1, 192)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2",
+         "nemotron", "g5x192"],
 )
 def test_paged_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
     lens = (0, 1, ps - 1, ps, 2 * ps + 3, 300)
@@ -100,8 +101,8 @@ def _chunk(dev, p0s, lens, S, ps, H, KV, Dh, mp, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (16, 16, 64), (8, 1, 128)],
-    ids=["mha16", "gqa32", "paper", "mqa128"],
+    "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (16, 16, 64), (8, 1, 128), (24, 2, 192)],
+    ids=["mha16", "gqa32", "paper", "mqa128", "nemotron"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_chunk_kernel_matches_plain(dev, dtype, ps, H, KV, Dh, window, softcap):
@@ -127,7 +128,7 @@ EDGE_WINDOWS = [(0, 0.0), (37, 30.0), (20, 0.0)]
 
 
 @pytest.mark.parametrize("ps", [8, 16, 64])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128, 192])
 @pytest.mark.parametrize("H,KV", EDGE_HEADS, ids=["mha", "gqa", "mqa"])
 @pytest.mark.parametrize("window,softcap", EDGE_WINDOWS, ids=["plain", "window-cap", "window20"])
 def test_chunk_kernel_bf16_edges(dev, ps, Dh, H, KV, window, softcap):
@@ -180,9 +181,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 4, 2, 32, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         paged_attention(q, pk.half(), pv.half(), table, q_pos, kv_pos)
-    # K1 and K5 take G * Dh up to 2048 (two row groups of a KV head)
-    q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 18, 1, 128, torch.float32)
-    with pytest.raises(ValueError, match="exceeds 2048"):
+    q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 4, 2, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention(q, pk, pv, table, q_pos, kv_pos)
+    # K1, K2 and K5 take G * Dh up to 3072 (at most four row groups of a KV head)
+    q, pk, pv, table, q_pos, kv_pos = _paged(dev, (5, 9), 16, 26, 1, 128, torch.float32)
+    with pytest.raises(ValueError, match="exceeds 3072"):
         paged_attention(q, pk, pv, table, q_pos, kv_pos)
 
 
@@ -218,8 +222,9 @@ def _shared(dev, n_shared, suffixes, ps, H, KV, Dh, dtype, seed=0):
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
-                (28, 4, 128), (32, 16, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
+                (28, 4, 128), (32, 16, 128), (24, 2, 192), (5, 1, 192)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2",
+         "nemotron", "g5x192"],
 )
 def test_shared_prefix_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
     """K2 against its plain version on all of (acc, m, l): suffixes of
@@ -243,8 +248,9 @@ def test_shared_prefix_kernel_matches_plain(dev, dtype, ps, H, KV, Dh):
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (32, 2, 128),
-                (28, 4, 128), (32, 16, 128)],
-    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2"],
+                (28, 4, 128), (32, 16, 128), (24, 2, 192), (5, 1, 192)],
+    ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "chatglm3", "qwen2vl", "gemma2",
+         "nemotron", "g5x192"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (-3, 30.0)], ids=["plain", "window-cap"])
 def test_cascade_matches_single_pass(dev, dtype, ps, H, KV, Dh, window, softcap):
@@ -309,9 +315,10 @@ def _read_rows(q_pos, kv_pos, valid, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
-                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128)],
+                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128), (24, 2, 192),
+                (5, 1, 192)],
     ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112", "chatglm3",
-         "qwen2vl", "gemma2"],
+         "qwen2vl", "gemma2", "nemotron", "g5x192"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -332,7 +339,7 @@ def test_flash_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("Dh", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 112, 128, 192])
 @pytest.mark.parametrize("H,KV", EDGE_HEADS, ids=["mha", "gqa", "mqa"])
 @pytest.mark.parametrize("window,softcap", EDGE_WINDOWS, ids=["plain", "window-cap", "window20"])
 def test_flash_kernel_bf16_edges(dev, Dh, H, KV, window, softcap):
@@ -358,9 +365,10 @@ def test_flash_kernel_bf16_edges(dev, Dh, H, KV, window, softcap):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "H,KV,Dh", [(4, 4, 16), (8, 2, 32), (4, 1, 64), (16, 16, 64), (8, 1, 128), (4, 4, 112),
-                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128)],
+                (8, 2, 112), (32, 2, 128), (28, 4, 128), (32, 16, 128), (24, 2, 192),
+                (5, 1, 192)],
     ids=["mha16", "gqa32", "mqa64", "paper", "mqa128", "zamba112", "gqa112", "chatglm3",
-         "qwen2vl", "gemma2"],
+         "qwen2vl", "gemma2", "nemotron", "g5x192"],
 )
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 30.0)])
 def test_decode_kernel_matches_plain(dev, dtype, H, KV, Dh, window, softcap):
@@ -494,8 +502,8 @@ def _k5_split_inputs(dev, B, H, KV, Dh, dtype, lanes, T=1000, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", BATCHES)
-@pytest.mark.parametrize("H,KV,Dh", [(16, 16, 64), (8, 2, 112), (32, 2, 128)],
-                         ids=["paper", "gqa112", "chatglm3"])
+@pytest.mark.parametrize("H,KV,Dh", [(16, 16, 64), (8, 2, 112), (32, 2, 128), (24, 2, 192)],
+                         ids=["paper", "gqa112", "chatglm3", "nemotron"])
 @pytest.mark.parametrize("case", list(K5_SPLIT_CASES))
 def test_decode_split_edges(dev, monkeypatch, dtype, B, H, KV, Dh, case):
     """K5 with 1 split, with 8 and with the planner's choice, each against

@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 HEADS = pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 32), (8, 2, 32), (4, 1, 64)], ids=["mha", "gqa", "mqa"]
+    "H,KV,Dh", [(4, 4, 32), (8, 2, 32), (4, 1, 64), (12, 1, 192)],
+    ids=["mha", "gqa", "mqa", "g12x192"],   # the last: nemotron's G = 12 at d_head 192
 )
 
 

@@ -59,7 +59,8 @@ RAGGED = (0, 5, 16, 41)
 
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize(
-    "H,KV,Dh", [(4, 4, 32), (8, 2, 32), (4, 1, 64)], ids=["mha", "gqa", "mqa"]
+    "H,KV,Dh", [(4, 4, 32), (8, 2, 32), (4, 1, 64), (12, 1, 192)],
+    ids=["mha", "gqa", "mqa", "g12x192"],   # the last: nemotron's G = 12 at d_head 192
 )
 def test_paged_ref_matches_jax(ps, H, KV, Dh):
     ours, pallas, ref = _both_paged(_paged_inputs(0, RAGGED, ps, H, KV, Dh))
@@ -133,6 +134,21 @@ def test_chunk_ref_matches_jax(p0s, lens, window, softcap, H, KV):
     for b, n in enumerate(lens):  # only rows that are read
         np.testing.assert_allclose(ours[b, :n], pallas[b, :n], **TOL)
         np.testing.assert_allclose(ours[b, :n], ref[b, :n], **TOL)
+
+
+@pytest.mark.parametrize("p0s,lens", CHUNKS, ids=["at", "inside", "across"])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (13, 30.0)])
+def test_chunk_ref_matches_jax_at_d_head_192(p0s, lens, window, softcap):
+    """nemotron's head group: G = 12 query heads of d_head 192 per KV head
+    (S * G = 384 query rows a KV head)."""
+    S, ps, mp = 32, 16, 6
+    args = _chunk_inputs(7, p0s, lens, S, ps, 12, 1, 192, mp)
+    kw = dict(window=window, softcap=softcap)
+    ours = chunked_prefill_ref(*(torch.from_numpy(a) for a in args), **kw).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    pallas = np.asarray(jax_chunk_ops.chunked_prefill_attention(*jargs, **kw))
+    for b, n in enumerate(lens):
+        np.testing.assert_allclose(ours[b, :n], pallas[b, :n], **TOL)
 
 
 def test_cpu_tensors_dispatch_to_plain_versions():

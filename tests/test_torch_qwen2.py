@@ -33,12 +33,12 @@ def _tcfg(jcfg):
 
 def test_configs_and_registry_match_jax():
     """Every config the port registers is field for field JAX's;
-    ``ASSIGNED`` holds the assigned architectures it serves, ``ALL`` adds
-    the paper model, and names resolve with either spelling."""
+    ``ASSIGNED`` holds JAX's ten assigned architectures, ``ALL`` adds the
+    paper model, and names resolve with either spelling."""
     assert set(tconfigs.ASSIGNED) == {
         "qwen2-0.5b", "granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "zamba2-7b",
-        "chatglm3-6b", "qwen2-vl-7b", "gemma2-27b"}
-    assert set(tconfigs.ASSIGNED) <= set(jconfigs.ASSIGNED)
+        "chatglm3-6b", "qwen2-vl-7b", "gemma2-27b", "musicgen-medium", "nemotron-4-340b"}
+    assert set(tconfigs.ASSIGNED) == set(jconfigs.ASSIGNED)
     assert set(tconfigs.ALL) == set(tconfigs.ASSIGNED) | {"paper-qwen1.5-0.5b"}
     assert tconfigs.list_archs() == sorted(tconfigs.ASSIGNED)
     for name, cfg in tconfigs.ALL.items():
@@ -48,7 +48,7 @@ def test_configs_and_registry_match_jax():
     assert (q.n_layers, q.d_model, q.n_heads, q.n_kv_heads, q.d_head) == (24, 896, 14, 2, 64)
     assert q.qkv_bias and q.tie_embeddings and q.rope_theta == 1e6
     with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get_config("musicgen-medium")
+        tconfigs.get_config("musicgen-large")
 
 
 @pytest.mark.parametrize("route", ["paged", "dense"])

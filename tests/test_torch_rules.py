@@ -43,7 +43,8 @@ _ISOLATED = textwrap.dedent(
                  "repro_torch.fleet.workload", "repro_torch.models.moe",
                  "repro_torch.configs.granite_moe_3b_a800m",
                  "repro_torch.configs.chatglm3_6b", "repro_torch.configs.qwen2_vl_7b",
-                 "repro_torch.configs.gemma2_27b"):
+                 "repro_torch.configs.gemma2_27b", "repro_torch.configs.musicgen_medium",
+                 "repro_torch.configs.nemotron_4_340b"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)

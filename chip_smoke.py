@@ -195,7 +195,23 @@ non-zero):
                exact launch counts, kernel vs plain per codebook in bf16
                (MUSICGEN_LOGIT_REL x std) and in f32 over 4 layers
                (``{"musicgen_path"}``);
-25. result  — JSON lines with every kernel's numbers (K1-K6; launches
+25. train   — training on one card through the plain path (no kernel
+               launches: the six counters stay 0): (a) every family's
+               ``.reduced()`` (JAX's ten, the paper model), f32, one
+               ``grads_fn`` on the card and one on the CPU (loss within
+               TRAIN_LOSS_REL, each gradient leaf within TRAIN_GRAD_REL x
+               its max); (b) the paper model's first 4 layers at full
+               width, f32: ``grad_accum`` 2 vs 1 and remat off vs on
+               within ACCUM_TOL; (c) the full-width paper model in bf16
+               with remat, 20 AdamW steps at B 8 x 1024 (every loss finite,
+               the last 5 below the first), 2 steps with ``grad_accum=2``,
+               the peak memory of a B 2 step with remat on below off; (d)
+               Mamba2-1.3B at full width, 3 steps at B 4 x 1024; (e) a
+               checkpoint of (c) loaded bit for bit into a fresh tree; (f)
+               ``forward_full`` through the kernels under autograd raises,
+               the trainer refuses the kernel config
+               (``{"train_path": ...}``);
+26. result  — JSON lines with every kernel's numbers (K1-K6; launches
                also count phases 23-24), the card's name and power limit,
                and last ``{"ok": true, "device": {...}}``.
 
@@ -207,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3685,6 +3702,340 @@ def phase_fleet(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training on one card: gradients of the plain path, AdamW, remat,
+# microbatch accumulation and checkpoints; no kernel launches
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_REL = 1e-5    # card vs CPU, f32 (TF32 off): the loss, relative
+TRAIN_GRAD_REL = 1e-4    # card vs CPU: each gradient leaf's max |diff| <= 1e-4 x the
+                         # leaf's max |CPU gradient| (CPU port vs JAX: <= 7.9e-6,
+                         # tests/test_torch_training_archs.py)
+ACCUM_TOL = dict(rtol=2e-4, atol=2e-5)   # grad_accum 2 vs 1 (and remat on vs off): JAX's
+                                         # own bounds, tests/test_training.py:80
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024   # the paper model at full width, bf16
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=20)
+MAMBA_STEPS, MAMBA_B, MAMBA_S = 3, 4, 1024
+
+
+def _train_batch(cfg, b, s, dev, seed=0):
+    """One ``BatchIterator`` batch on ``dev``; a VLM's patch embeddings
+    drawn from the seed."""
+    import numpy as np
+    import torch
+    from repro_torch.data import BatchIterator
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(BatchIterator(cfg, batch_size=b, seq_len=s, seed=seed)).items()}
+    if cfg.n_patches:
+        pe = np.random.default_rng(seed).standard_normal((b, cfg.n_patches, cfg.d_model))
+        batch["patch_embeds"] = torch.from_numpy(pe.astype(np.float32)).to(dev)
+    return batch
+
+
+def _train_card_vs_cpu(dev) -> dict:
+    """(a) Every family's ``.reduced()`` (JAX's ten and the paper model),
+    f32, seed-0 weights drawn on the CPU and copied to the card: one
+    ``grads_fn`` on each device."""
+    import torch
+    from repro_torch.configs import ASSIGNED, PAPER_QWEN15_0_5B
+    from repro_torch.models import init_params
+    from repro_torch.training import grads_fn
+    from repro_torch.models.weights import tree_leaves, tree_map
+
+    rows = {}
+    for base in (*ASSIGNED.values(), PAPER_QWEN15_0_5B):
+        cfg = base.reduced()
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = _train_batch(cfg, 2, 128, "cpu")
+        l_cpu, m_cpu, g_cpu = grads_fn(params, cfg, batch)
+        to_dev = lambda t: t.to(dev)  # noqa: E731
+        l_dev, m_dev, g_dev = grads_fn(tree_map(to_dev, params), cfg, tree_map(to_dev, batch))
+        rel = []
+        for a, b in zip(tree_leaves(g_cpu), tree_leaves(g_dev)):
+            scale = a.abs().max().item()
+            assert scale > 0, cfg.name                       # every leaf gets a gradient
+            rel.append((a - b.cpu()).abs().max().item() / scale)
+        loss_rel = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+        rows[base.name] = {"loss": l_cpu.item(), "loss_rel": loss_rel, "aux": m_dev["aux"].item(),
+                           "grad_rel_max": max(rel), "leaves": len(rel)}
+        log(f"train card vs cpu {base.name} (reduced, f32, B 2 x 128): loss {l_cpu.item():.6f}, "
+            f"rel {loss_rel:.2e} (bound {TRAIN_LOSS_REL}); worst of {len(rel)} gradient leaves "
+            f"{max(rel):.2e} x its max (bound {TRAIN_GRAD_REL})")
+        assert loss_rel <= TRAIN_LOSS_REL, (base.name, loss_rel)
+        assert max(rel) <= TRAIN_GRAD_REL, (base.name, max(rel))
+    return rows
+
+
+def _max_diff(a_tree, b_tree) -> float:
+    from repro_torch.models.weights import tree_leaves
+
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+
+def _train_accum_remat(dev) -> dict:
+    """(b) The paper model's first 4 layers at full width, f32 (TF32 off),
+    B 4 x 256: ``grad_accum=2`` against 1, and ``remat`` off against on."""
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.models import init_params
+    from repro_torch.training import grads_fn
+    from repro_torch.models.weights import tree_leaves
+
+    cfg = PAPER_QWEN15_0_5B.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    batch = _train_batch(cfg, 4, 256, dev)
+    l1, _, g1 = grads_fn(params, cfg, batch)
+    l2, _, g2 = grads_fn(params, cfg.replace(grad_accum=2), batch)
+    accum_rel = abs(l2.item() - l1.item()) / abs(l1.item())
+    assert accum_rel <= TRAIN_LOSS_REL, accum_rel
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        torch.testing.assert_close(b, a, **ACCUM_TOL)
+    accum_diff = _max_diff(g1, g2)
+    # remat on vs off with deterministic algorithms (warn only: cuBLAS is not
+    # switched): the embedding's backward adds repeated tokens' rows in a
+    # run-dependent order otherwise (an f32 ulp between two runs of one config
+    # on the CPU at this batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        l1, _, g1 = grads_fn(params, cfg, batch)
+        l0, _, g0 = grads_fn(params, cfg.replace(remat=False), batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    remat_diff = _max_diff(g1, g0)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        torch.testing.assert_close(b, a, **ACCUM_TOL)
+    out = {"layers": 4, "batch": [4, 256], "accum_loss_rel": accum_rel,
+           "accum_grad_max_abs_diff": accum_diff, "remat_loss_equal": l0.item() == l1.item(),
+           "remat_grad_max_abs_diff": remat_diff}
+    log(f"train accum/remat (paper, 4 of {PAPER_QWEN15_0_5B.n_layers} layers at full width, f32, "
+        f"B 4 x 256): grad_accum 2 "
+        f"vs 1 loss rel {accum_rel:.2e}, gradients max |diff| {accum_diff:.3e} (bounds "
+        f"{ACCUM_TOL}); remat off vs on max |diff| {remat_diff:.3e}, loss equal "
+        f"{out['remat_loss_equal']}")
+    del params, g0, g1, g2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_steps(step, params, opt, batches, dev):
+    """Run ``step`` over ``batches``; returns (params, opt, losses, ms per
+    step), each step timed on the host clock up to a device sync."""
+    import torch
+
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return params, opt, losses, ms
+
+
+def _profiled_step(step, params, opt, batch, wall_ms: float):
+    """One more ``step`` traced by torch.profiler: returns (params, opt,
+    loss, entry), the entry with the device busy time, its idle share
+    against ``wall_ms`` (an untraced step's host wall: tracing slows the
+    host, not the kernels), the device kernels and copies counted, and the
+    top ones by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt, m = step(params, opt, batch)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+    busy, rows = _device_ms(prof)
+    entry = {"wall_ms": wall_ms, "device_busy_ms": busy if busy > 0 else "not measured",
+             "device_idle_share": max(0.0, 1 - busy / wall_ms) if busy > 0 else "not measured",
+             "device_launches": sum(c for _, _, c in rows),
+             "top_kernels_ms": [(k[:70], t, c) for k, t, c in rows[:8]]}
+    return params, opt, loss, entry
+
+
+def _train_paper(dev, card: str) -> dict:
+    """(c) The paper model at full width (24 layers, bf16, remat), trained
+    TRAIN_STEPS steps at B 8 x 1024, then 2 steps with ``grad_accum=2``;
+    the peak memory of one B 2 step with remat on and off; (e) its
+    checkpoint saved and loaded into a fresh tree, bit for bit."""
+    import os
+    import statistics
+
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.data import BatchIterator
+    from repro_torch.models import init_params
+    from repro_torch.training import (
+        OptConfig, init_opt_state, load_checkpoint, make_train_step, save_checkpoint,
+    )
+    from repro_torch.models.weights import tree_leaves
+
+    cfg = PAPER_QWEN15_0_5B
+    assert cfg.remat and cfg.param_dtype == "bfloat16"
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    it = BatchIterator(cfg, batch_size=TRAIN_B, seq_len=TRAIN_S)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+               for _ in range(TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, ms = _timed_steps(make_train_step(cfg, opt_cfg), params, opt,
+                                           batches[:TRAIN_STEPS], dev)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses), losses
+    assert statistics.mean(losses[-5:]) < losses[0], losses
+    p50 = statistics.median(ms[1:])
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6 * cfg.active_param_count() * tokens / (p50 / 1e3) / BF16_FLOPS_PER_S
+    params, opt, _, prof = _profiled_step(make_train_step(cfg, opt_cfg), params, opt,
+                                          batches[0], p50)
+    log(f"train paper: profiled B {TRAIN_B} x {TRAIN_S} step {json.dumps(prof)}")
+    params, opt, acc_losses, acc_ms = _timed_steps(
+        make_train_step(cfg.replace(grad_accum=2), opt_cfg), params, opt,
+        batches[TRAIN_STEPS:], dev)
+    assert all(math.isfinite(x) for x in acc_losses), acc_losses
+    del batches
+    b2 = _train_batch(cfg, 2, TRAIN_S, dev, seed=1)
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, _, _ = _timed_steps(make_train_step(cfg.replace(remat=remat), opt_cfg),
+                                         params, opt, [b2], dev)
+        peaks[remat] = torch.cuda.max_memory_allocated()
+    assert peaks[True] < peaks[False], peaks
+    out = {"card": card, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "batch": [TRAIN_B, TRAIN_S], "opt": TRAIN_OPT, "losses": losses,
+           "step_ms": ms, "step_ms_p50": p50, "first_step_ms": ms[0], "profile": prof,
+           "tokens_per_s": tokens / (p50 / 1e3), "peak_bytes": peak,
+           "model_flops_share_of_989T": mfu, "accum2_losses": acc_losses,
+           "accum2_step_ms": acc_ms, "peak_bytes_b2_remat_on": peaks[True],
+           "peak_bytes_b2_remat_off": peaks[False]}
+    log(f"train paper ({cfg.n_layers} layers, bf16, remat, B {TRAIN_B} x {TRAIN_S}; {card}): losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{statistics.mean(losses[-5:]):.4f}); step p50 {p50:.3f} ms (first {ms[0]:.3f}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 1e9:.3f} GB, model flops "
+        f"{100 * mfu:.2f} % of 989 TFLOP/s; grad_accum 2: {acc_ms[0]:.3f} / {acc_ms[1]:.3f} ms, "
+        f"losses {acc_losses}; one B 2 step peak {peaks[True] / 1e9:.3f} GB with remat, "
+        f"{peaks[False] / 1e9:.3f} GB without")
+
+    path = ROOT / "build" / "train_ckpt" / "paper.msgpack"
+    step = int(opt["step"])
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params, step=step)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    fresh = init_params(cfg, seed=1, device=dev)
+    t0 = time.perf_counter()
+    loaded, got_step = load_checkpoint(str(path), fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    path.unlink()
+    assert got_step == step, (got_step, step)
+    pairs = list(zip(tree_leaves(params), tree_leaves(loaded)))
+    assert len(pairs) == len(tree_leaves(fresh))
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+    out["checkpoint"] = {"bytes": size, "save_s": save_s, "load_s": load_s, "step": step,
+                         "leaves": len(pairs), "bit_exact": True}
+    log(f"train checkpoint: {size} bytes saved in {save_s:.3f} s, loaded in {load_s:.3f} s "
+        f"into a fresh tree, {len(pairs)} leaves bit-exact, step {step} restored")
+    del params, opt, fresh, loaded, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_mamba(dev, card: str) -> dict:
+    """(d) Mamba2-1.3B at full width, bf16, through the plain SSD:
+    MAMBA_STEPS steps at B 4 x 1024, the last traced by the profiler."""
+    import torch
+    from repro_torch.configs import MAMBA2_1_3B
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, init_opt_state, make_train_step
+
+    cfg = MAMBA2_1_3B
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    batches = [_train_batch(cfg, MAMBA_B, MAMBA_S, dev, seed=i) for i in range(MAMBA_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    params, opt, losses, ms = _timed_steps(step, params, opt, batches[:-1], dev)
+    params, opt, loss, prof = _profiled_step(step, params, opt, batches[-1], ms[-1])
+    losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses), losses
+    out = {"card": card, "layers": cfg.n_layers, "batch": [MAMBA_B, MAMBA_S], "losses": losses,
+           "step_ms": ms, "peak_bytes": peak, "profile": prof}
+    log(f"train mamba2-1.3b ({cfg.n_layers} layers, bf16, B {MAMBA_B} x {MAMBA_S}; {card}): "
+        f"losses {losses}, step ms {[round(x, 3) for x in ms]} (then one traced), peak "
+        f"{peak / 1e9:.3f} GB; profiled step {json.dumps(prof)}")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_guard(dev) -> dict:
+    """(f) Under autograd, ``forward_full`` through the kernels raises on
+    card tensors that require grad (K4 in a dense model, K6 in mamba), and
+    the trainer refuses a kernel config before its forward."""
+    import torch
+    from repro_torch.configs import MAMBA2_1_3B, PAPER_QWEN15_0_5B
+    from repro_torch.models import forward_full, init_params
+    from repro_torch.training import grads_fn
+    from repro_torch.models.weights import tree_map
+
+    out = {}
+    for base, chunk in ((PAPER_QWEN15_0_5B, 64), (MAMBA2_1_3B, 128)):
+        cfg = base.reduced(ssm_chunk=chunk).replace(attn_impl="cuda")
+        params = tree_map(lambda t: t.requires_grad_(), init_params(cfg, seed=0, device=dev))
+        batch = _train_batch(cfg, 1, 128, dev)
+        with torch.enable_grad():
+            try:
+                forward_full(params, cfg, batch["tokens"])
+            except RuntimeError as e:
+                assert "no backward" in str(e), e
+                out[base.name] = str(e).split(":")[0]
+            else:
+                raise AssertionError(f"{cfg.name}: a kernel launched under autograd")
+        try:
+            grads_fn(params, cfg, batch)
+        except NotImplementedError as e:
+            assert "attn_impl='reference'" in str(e), e
+        else:
+            raise AssertionError(f"{cfg.name}: the trainer took a kernel config")
+    log(f"train guard: forward_full through the kernels under autograd raised in {out}; "
+        f"grads_fn refused attn_impl='cuda'")
+    return out
+
+
+def phase_train(dev) -> dict:
+    """Training on one card (``repro_torch.training``), through the plain
+    path: (a) card vs CPU gradients for every family, (b) accumulation and
+    remat at full width, (c) the paper model trained at full width, (d)
+    Mamba2-1.3B's backward at full width, (e) a checkpoint round trip, (f)
+    the guard that keeps the kernels out of autograd. No kernel launches:
+    the six counters are 0 at the start and still 0 at the end."""
+    counters = dict(_counters(), **_ssm_counters())
+    for c in counters.values():
+        c.launches = 0
+    card = gpu_name_and_power()
+    out = {"card": card, "card_vs_cpu": _train_card_vs_cpu(dev),
+           "accum_remat": _train_accum_remat(dev)}
+    out["paper"] = _train_paper(dev, card)
+    out["mamba2"] = _train_mamba(dev, card)
+    out["guard"] = _train_guard(dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"train: kernel launches in the phase {launches} (must all be 0)")
+    assert not any(launches.values()), launches
+    out["launches"] = launches
+    return out
+
+
 SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
 
 
@@ -3827,6 +4178,7 @@ def main() -> int:
     nemotron = phase_gqa_model(dev, NEMOTRON_4_340B.replace(n_layers=NEMOTRON_LAYERS),
                                NEMOTRON_LOGIT_REL, f32_layers=NEMOTRON_F32_LAYERS)
     musicgen = phase_musicgen(dev)
+    train = phase_train(dev)
     # the GQA edges' bf16 errors count in each kernel's max_abs_err
     for kk in (k1, k2, k3, k4, k5):
         kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
@@ -3859,6 +4211,7 @@ def main() -> int:
     print(json.dumps({"gemma2_path": gemma2}))
     print(json.dumps({"nemotron_path": nemotron}))
     print(json.dumps({"musicgen_path": musicgen}))
+    print(json.dumps({"train_path": train}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

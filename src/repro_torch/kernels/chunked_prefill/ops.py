@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..guard import refuse_grad
 from .kernel import chunked_prefill_cuda
 from .ref import chunked_prefill_ref
 
@@ -42,6 +43,7 @@ def chunked_prefill_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"chunked_prefill_attention: unsupported device {q.device}")
+    refuse_grad("chunked_prefill_attention", q, pool_k, pool_v)
     b, s, h, dh = q.shape
     ps, kvh = pool_k.shape[1], pool_k.shape[2]
     g = h // kvh

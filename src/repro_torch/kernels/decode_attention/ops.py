@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..guard import refuse_grad
 from .kernel import decode_attention_cuda
 from .ref import decode_attention_ref
 
@@ -34,6 +35,7 @@ def decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     b, _, h, dh = q.shape
     kvh = k.shape[2]
     # the G query heads of one KV head share each K/V row as one block

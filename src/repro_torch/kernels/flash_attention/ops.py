@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..guard import refuse_grad
 from .kernel import flash_attention_cuda
 from .ref import flash_attention_ref
 
@@ -36,6 +37,7 @@ def flash_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
     out = flash_attention_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), i32(q_pos), i32(kv_pos),

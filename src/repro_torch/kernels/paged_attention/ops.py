@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from ..guard import refuse_grad
 from .kernel import paged_attention_cuda, shared_prefix_cuda
 from .ref import Stats, paged_attention_ref, shared_prefix_ref
 
@@ -36,6 +37,7 @@ def shared_prefix(
         )
     if q.device.type != "cuda":
         raise ValueError(f"shared_prefix: unsupported device {q.device}")
+    refuse_grad("shared_prefix", q, pool_k, pool_v)
     out = shared_prefix_cuda(
         q.contiguous(), pool_k, pool_v, shared_pages.to(torch.int32).contiguous(),
         q_pos.to(torch.int32).contiguous(), window=window, softcap=softcap,
@@ -94,6 +96,7 @@ def paged_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    refuse_grad("paged_attention", q, pool_k, pool_v)
     bound = torch.clamp((qp + ps) // ps, 1, mp).to(torch.int32)  # ceil((qp+1)/ps)
     out = paged_attention_cuda(
         qr.contiguous(), pool_k, pool_v,

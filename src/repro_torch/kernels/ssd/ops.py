@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..guard import refuse_grad
 from .kernel import ssd_chunk_cuda
 from .ref import ssd_chunk_ref
 
@@ -39,6 +40,7 @@ def ssd(
     if x.device.type == "cpu":
         y_intra, states, dA_cs = ssd_chunk_ref(*args, chunk)
     elif x.device.type == "cuda":
+        refuse_grad("ssd", x, dt, A, Bv, Cv, h0)
         y_intra, states, dA_cs = ssd_chunk_cuda(*(a.contiguous() for a in args), chunk)
         ssd.launches += 1
     else:

@@ -8,7 +8,7 @@ from .transformer import (
     layer_groups,
     make_decode_caches,
 )
-from .weights import params_from_numpy
+from .weights import params_from_numpy, params_to_numpy
 
 __all__ = [
     "ModelConfig",
@@ -19,6 +19,7 @@ __all__ = [
     "layer_groups",
     "make_decode_caches",
     "params_from_numpy",
+    "params_to_numpy",
     "prefill",
     "prefill_append",
     "prefill_chunk_paged",

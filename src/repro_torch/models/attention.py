@@ -104,7 +104,7 @@ def attention_forward(
     seq_valid: Optional[torch.Tensor] = None,  # (B,S) bool
     return_kv: bool = False,
 ):
-    """Full-sequence self-attention (prefill; inference only). With
+    """Full-sequence self-attention (prefill and training). With
     ``return_kv``, also returns the rotated K and V (for cache seeding).
     The kernel path is ``kernels.flash_attention`` (K4)."""
     q, k, v = qkv_project(p, x, positions, cfg)

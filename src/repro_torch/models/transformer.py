@@ -1,9 +1,9 @@
 """Decoder assembly — the PyTorch counterpart of
 ``repro.models.transformer`` for the ``"dense"``, ``"moe"``,
 ``"gemma_pair"``, ``"mamba"`` and ``"zamba"`` layer groups: the
-full-sequence forward (inference), the dense route's decode step against
-full caches, ring caches and SSM state, and the paged route's decode step
-against a page pool (dense and moe groups).
+full-sequence forward (inference and training), the dense route's decode
+step against full caches, ring caches and SSM state, and the paged route's
+decode step against a page pool (dense and moe groups).
 
 Parameters are ``{"embed": {...}, "groups": [group, ...]}`` plus, for a
 zamba hybrid, ``"shared_attn"`` (one dense block's dict, shared by every
@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import (
@@ -194,17 +195,42 @@ def _mamba_block_full(
     return x + out, final, conv_state
 
 
-def _run_zamba_full(
-    gp: List[List[Params]], shared_bp: Params, x: torch.Tensor, positions: torch.Tensor,
-    cfg: ModelConfig, seq_valid: Optional[torch.Tensor],
+def _zamba_group_full(
+    group: List[Params], shared_bp: Params, x: torch.Tensor, positions: torch.Tensor,
+    cfg: ModelConfig, window: int, seq_valid: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """``period`` mamba layers then the shared attention block, per group."""
-    w = 0 if cfg.attn_variant == "full" else (cfg.sliding_window or 8192)
-    for group in gp:
-        for bp in group:
-            x, _, _ = _mamba_block_full(bp, x, cfg)
-        x = _dense_block_full(shared_bp, x, positions, cfg, w, seq_valid)
-    return x
+    """``period`` mamba layers then the shared attention block."""
+    for bp in group:
+        x, _, _ = _mamba_block_full(bp, x, cfg)
+    return _dense_block_full(shared_bp, x, positions, cfg, window, seq_valid)
+
+
+def _mamba_layer_full(bp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _mamba_block_full(bp, x, cfg)[0]
+
+
+def _pair_full(
+    bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    local_w: int, global_w: int, seq_valid: Optional[torch.Tensor],
+) -> torch.Tensor:
+    x = _dense_block_full(bp["local"], x, positions, cfg, local_w, seq_valid)
+    return _dense_block_full(bp["global"], x, positions, cfg, global_w, seq_valid)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    activations when ``cfg.remat`` and autograd is recording (JAX's
+    ``_maybe_remat``, ``jax.checkpoint`` around each scanned block). The
+    recompute gives the same values as the forward: every op of a block is
+    deterministic for fixed shapes. That is what makes it safe for the MoE
+    too, whose combine adds each token's expert outputs in a fixed order
+    (``models/moe.py``): a router that picked another expert in the
+    recompute than in the forward would pair one routing's saved
+    activations with another's, and the gradient would be wrong without
+    any error."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def embed_inputs(
@@ -239,7 +265,10 @@ def forward_full(
     moe layers' Switch losses, 0 without them). ``positions`` default to
     0..S-1 (every M-RoPE stream the same); a VLM's ``patch_embeds``
     overwrite the first rows of the embeddings. With the kernels, attention
-    is K4 and every mamba layer's SSD is K6."""
+    is K4 and every mamba layer's SSD is K6. Under autograd with
+    ``cfg.remat`` (the default, as in JAX) each block — a layer, a gemma
+    pair, a zamba group with its shared attention — is recomputed in the
+    backward (``_remat``); the values are the same either way."""
     b, s = tokens.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, tokens.device)
@@ -247,24 +276,26 @@ def forward_full(
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for spec, gp in zip(layer_groups(cfg), params["groups"]):
         if spec.kind == "zamba":
-            x = _run_zamba_full(gp, params["shared_attn"], x, positions, cfg, seq_valid)
+            w = 0 if cfg.attn_variant == "full" else (cfg.sliding_window or 8192)
+            for group in gp:
+                x = _remat(cfg, _zamba_group_full, group, params["shared_attn"], x, positions,
+                           cfg, w, seq_valid)
         elif spec.kind == "mamba":
             for bp in gp:
-                x, _, _ = _mamba_block_full(bp, x, cfg)
+                x = _remat(cfg, _mamba_layer_full, bp, x, cfg)
         elif spec.kind == "gemma_pair":
             local_w, global_w = pair_windows(cfg)
             for bp in gp:
-                x = _dense_block_full(bp["local"], x, positions, cfg, local_w, seq_valid)
-                x = _dense_block_full(bp["global"], x, positions, cfg, global_w, seq_valid)
+                x = _remat(cfg, _pair_full, bp, x, positions, cfg, local_w, global_w, seq_valid)
         else:
             w = cfg.window_for_layer(0)  # uniform groups share one window
             group_aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for bp in gp:
                 if spec.kind == "moe":
-                    x, a = _moe_block_full(bp, x, positions, cfg, w, seq_valid)
+                    x, a = _remat(cfg, _moe_block_full, bp, x, positions, cfg, w, seq_valid)
                     group_aux = group_aux + a
                 else:
-                    x = _dense_block_full(bp, x, positions, cfg, w, seq_valid)
+                    x = _remat(cfg, _dense_block_full, bp, x, positions, cfg, w, seq_valid)
             aux = aux + group_aux
     return unembed(params["embed"], x, cfg), aux
 

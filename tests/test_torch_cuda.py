@@ -8,7 +8,9 @@ K3 and K4 in bf16 run on the tensor cores and in f32 on the FMA units:
 both are checked, and the bf16 edges (ragged row tiles, p0 inside a key
 tile, windows that mask whole tiles) have cases of their own.
 ``chip_smoke.py`` checks only the main path's shapes; this matrix covers
-the rest. Needs a CUDA GPU (sm_90a) and nvcc; skips elsewhere.
+the rest. Last, every wrapper's refusal to launch where autograd would
+record it, and the training launcher on the card. Needs a CUDA GPU
+(sm_90a) and nvcc; skips elsewhere.
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -672,3 +674,71 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
         ssd_chunk_cuda(x, dt, A, Bv[:, :, 0, :48].contiguous(), Cv[:, :, 0, :48].contiguous(), 64)
     with pytest.raises(ValueError):
         ssd_chunk_cuda(x, dt, A, Bv[:, :, 0].contiguous(), Cv[:, :, 0].contiguous(), 192)
+
+
+# ---------------------------------------------------------------------------
+# No kernel carries a gradient; training on the card
+# ---------------------------------------------------------------------------
+
+def _one_call_each(dev):
+    """(wrapper, its arguments) for each of the six wrappers, small f32
+    card inputs."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import shared_prefix
+    from repro_torch.kernels.ssd import ssd
+
+    f32 = torch.float32
+    (q, pk, pv, _, q_pos, _), run = _shared(dev, 2, [3, 7], 16, 4, 2, 32, f32)
+    return [
+        (paged_attention, _paged(dev, (5, 20), 16, 4, 2, 32, f32)),
+        (shared_prefix, (q.reshape(2, 2, 2, 32), pk, pv, run, q_pos.reshape(2))),
+        (chunked_prefill_attention, _chunk(dev, [0, 16], [16, 10], 16, 16, 4, 2, 32, 4, f32)),
+        (flash_attention, _linear(dev, 2, 8, 32, 4, 2, 32, f32, [0, 8], [8, 5])),
+        (decode_attention, _linear(dev, 2, 1, 32, 4, 2, 32, f32, [20, 9], [1, 1])),
+        (ssd, _ssd(dev, 1, 128, 2, 32, 16) + (128,)),
+    ]
+
+
+def test_wrappers_refuse_to_launch_under_autograd(dev):
+    """A CUDA launch has no backward: with grad mode on and an input that
+    requires grad every wrapper raises before launching; under no_grad,
+    or on inputs that require none, it launches as before."""
+    for wrapper, args in _one_call_each(dev):
+        tracked = [a.clone().requires_grad_() if torch.is_tensor(a) and a.is_floating_point()
+                   else a for a in args]
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            wrapper(*tracked)
+        assert wrapper.launches == before, wrapper.__name__
+        with torch.no_grad():
+            wrapper(*tracked)
+        wrapper(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, wrapper.__name__
+
+
+def test_train_launcher_on_the_card(dev, tmp_path, capsys):
+    """``launch.train`` with no ``--device`` trains the reduced paper model
+    on the card: 5 finite losses, a checkpoint that loads back bit for bit,
+    and no kernel launched (training runs the plain path)."""
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.training import load_checkpoint
+    from repro_torch.models.weights import tree_leaves
+
+    wrappers = [w for w, _ in _one_call_each(dev)]
+    before = [w.launches for w in wrappers]
+    path = str(tmp_path / "card.msgpack")
+    train.main(["--arch", PAPER_QWEN15_0_5B.name, "--steps", "5", "--batch", "2", "--seq",
+                "64", "--ckpt", path])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
+    assert [int(ln.split()[1]) for ln in lines] == [0, 4]
+    assert all(float(ln.split("loss=")[1].split()[0]) < 1e3 for ln in lines)
+    assert [w.launches for w in wrappers] == before
+    like = init_params(PAPER_QWEN15_0_5B.reduced(), seed=1, device=dev)
+    loaded, step = load_checkpoint(path, like)
+    assert step == 5
+    assert all(t.device.type == "cuda" and torch.isfinite(t.float()).all()
+               for t in tree_leaves(loaded))

@@ -1,8 +1,9 @@
 """Rules the port must keep, so a later slice cannot break them quietly:
 
-- import isolation: with ``jax`` and the ``repro`` package blocked from
-  being imported, every module of ``repro_torch`` and ``chip_smoke.py``
-  still imports;
+- import isolation: with ``jax``, the ``repro`` package and ``msgpack``
+  (absent from the card's machine; the checkpoint carries its own codec)
+  blocked from being imported, every module of ``repro_torch`` and
+  ``chip_smoke.py`` still imports;
 - the device rule: entry points default to the GPU and raise without one
   (no quiet fall back to the CPU); kernel wrappers dispatch on the tensor's
   device alone."""
@@ -22,7 +23,7 @@ _ISOLATED = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "repro")
+    BLOCKED = ("jax", "jaxlib", "repro", "msgpack")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -44,7 +45,10 @@ _ISOLATED = textwrap.dedent(
                  "repro_torch.configs.granite_moe_3b_a800m",
                  "repro_torch.configs.chatglm3_6b", "repro_torch.configs.qwen2_vl_7b",
                  "repro_torch.configs.gemma2_27b", "repro_torch.configs.musicgen_medium",
-                 "repro_torch.configs.nemotron_4_340b"):
+                 "repro_torch.configs.nemotron_4_340b", "repro_torch.kernels.guard",
+                 "repro_torch.training.optimizer", "repro_torch.training.trainer",
+                 "repro_torch.training.checkpoint", "repro_torch.training._msgpack",
+                 "repro_torch.launch.train"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -67,8 +71,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # every module was walked: the kernels, the serving stack, the
     # DisCEdge system layers (core, store, edge, data, launch), the fleet
     # layer, the MoE layer and the configs of qwen2, granite, dbrx,
-    # chatglm3, qwen2-vl and gemma2
-    assert int(out.stdout.strip().splitlines()[-1]) >= 78
+    # chatglm3, qwen2-vl and gemma2, the training modules and launcher
+    assert int(out.stdout.strip().splitlines()[-1]) >= 85
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -83,7 +87,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         PAPER_QWEN15_0_5B,
         QWEN2_VL_7B,
     )
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import init_params, params_from_numpy
     from repro_torch.serving import BatchedLLMService, InferenceEngine, TorchLLMService
 
@@ -92,6 +96,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", PAPER_QWEN15_0_5B.name, "--turns", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", GRANITE_MOE_3B_A800M.name, "--turns", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", PAPER_QWEN15_0_5B.name, "--steps", "1"])
     for arch in (CHATGLM3_6B, QWEN2_VL_7B, GEMMA2_27B):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", arch.name, "--turns", "1"])
@@ -178,3 +184,43 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention(torch.empty(1, 1, 4, 16, **meta), *kv, torch.empty(1, 1, **i32),
                          torch.empty(1, 8, **i32), torch.empty(1, 8, **i32))
+
+
+def test_train_step_runs_where_its_tensors_are():
+    """``make_train_step`` has no device of its own: on CPU params and a CPU
+    batch it trains on the CPU and leaves every tensor there."""
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.data import BatchIterator
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, init_opt_state, make_train_step
+    from repro_torch.models.weights import tree_leaves
+
+    cfg = PAPER_QWEN15_0_5B.reduced(n_layers=1)
+    params = init_params(cfg, device="cpu")
+    opt = init_opt_state(params)
+    batch = {k: torch.from_numpy(v) for k, v in next(BatchIterator(cfg, 1, 16)).items()}
+    params, opt, m = make_train_step(cfg, OptConfig())(params, opt, batch)
+    assert {t.device.type for t in tree_leaves([params, opt, m])} == {"cpu"}
+
+
+def test_kernel_wrappers_stay_differentiable_on_cpu_tensors():
+    """The guard that stops a kernel launch under autograd is for the card
+    only: on CPU tensors that require grad a wrapper runs its plain version,
+    whose output autograd tracks back to every input."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 8, 4, 16, generator=gen).requires_grad_() for _ in range(3))
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    before = flash_attention.launches
+    out = flash_attention(q, k[:, :, :2], v[:, :, :2], pos, pos, torch.ones(1, 8, dtype=torch.bool))
+    out.sum().backward()
+    assert flash_attention.launches == before
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in (q, k, v))
+    x = torch.randn(1, 32, 2, 8, generator=gen).requires_grad_()
+    dt = torch.rand(1, 32, 2, generator=gen)
+    bc = torch.randn(1, 32, 1, 4, generator=gen)
+    y, _ = ssd(x, dt, -torch.ones(2), bc, bc, 16)
+    y.sum().backward()
+    assert x.grad is not None and x.grad.abs().sum() > 0

@@ -160,8 +160,13 @@ non-zero):
                (``EdgeCluster.build(router=..., admission_limit=...)``),
                driven by ``run_fleet`` with a crash and a restart: no hung
                ticket, flips both ways, turns on both mounts, K1, K2 and K3
-               launched (counted per mount), batched turns equal to a fresh
-               single-stream service's tokens (``{"fleet_path": ...}``);
+               launched (counted per mount); every batched-mount turn (up
+               to FLEET_MAX_REPLAYS) teacher-forced through the
+               single-stream kernel path: each step's batched token within
+               LOGIT_TOL of that step's largest logit, and at least
+               FLEET_MIN_ARGMAX of all steps its exact argmax; the count of
+               turns a fresh single-stream service repeats token for token
+               is printed (``{"fleet_path": ...}``);
 21. chatglm3-6b, qwen2-vl-7b — each at full width (random bf16
                weights; 12.5 / 15.2 GB): 2 sessions x 2 turns on the paged
                and the dense route with exact launch counts, a
@@ -211,7 +216,21 @@ non-zero):
                ``forward_full`` through the kernels under autograd raises,
                the trainer refuses the kernel config
                (``{"train_path": ...}``);
-26. result  — JSON lines with every kernel's numbers (K1-K6; launches
+26. launch  — the multi-device launch's specs and analysis, on one card
+               (no kernel launches: the six counters stay 0): (a) the
+               eleven configurations at full width on the meta device
+               (``abstract_params``; no CUDA memory allocated), every spec
+               of ``param_specs``, ``fsdp_param_specs`` and
+               ``opt_state_specs(zero1=True)`` dividing its dim on the
+               16x16 and 2x16x16 meshes, bytes per device of params and
+               optimizer state; (b) one more B 8 x 1024 train step of the
+               full paper model under ``FlopCounterMode`` on the card,
+               equal to ``step_flops`` on meta, as a ``RooflineResult``
+               beside phase 25's measured step; (c) the paper model's
+               1024-token plain-path prefill timed beside
+               ``migration_vs_reprefill(...).reprefill_s``
+               (``{"launch_path": ...}``);
+27. result  — JSON lines with every kernel's numbers (K1-K6; launches
                also count phases 23-24), the card's name and power limit,
                and last ``{"ok": true, "device": {...}}``.
 
@@ -232,8 +251,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# the card's roofline constants, from the port's launch layer (H100 SXM:
+# HBM3 3.35 TB/s, dense bf16 tensor cores 989 TFLOP/s)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S  # noqa: E402
+
 PS = 16                        # page size of the main path
 K1_TOL = 2e-2   # bf16 output: f32 sums taken in another order, then rounded
                 # to bf16 (one bf16 ulp is 7.8e-3 on [1, 2), 1.6e-2 on [2, 4))
@@ -3510,9 +3532,10 @@ FLEET_SPEC = dict(n_clients=12, seed=3, arrival_rate_per_s=8.0, max_turns=3,
                   think_ms_mean=300.0, n_families=1)
 FLEET_ADMISSION = 6                     # a node sheds its 7th turn in flight
 FLEET_CHURN = ("edge-1", 4000.0, 9000.0)   # crash at 4 s of the scenario, restart at 9 s
-FLEET_MIN_EQUAL = 3                     # batched-mount turns that must equal a fresh
-                                        # single-stream service's tokens
-FLEET_MAX_REPLAYS = 12                  # batched-mount turns replayed at most to find them
+FLEET_MAX_REPLAYS = 12                  # batched-mount turns teacher-forced at most
+FLEET_MIN_ARGMAX = 0.95                 # share of all replayed steps whose batched token
+                                        # is the single-stream path's exact argmax; every
+                                        # other step's token lies within LOGIT_TOL of it
 
 
 def phase_fleet(dev) -> dict:
@@ -3526,12 +3549,14 @@ def phase_fleet(dev) -> dict:
     (or the warm-start prime) that made it.
     Requires: no hung ticket, a flip up in the rush, every node still on
     its batched mount after the rush flipping back at its lone turn, turns
-    served on
-    both mounts, K1, K2 and K3 launched, and at least FLEET_MIN_EQUAL
-    batched-mount turns whose tokens equal a fresh single-stream kernel
-    service's on the same context — a turn that differs must differ at a
-    bf16 near-tie (the logit gap at its first differing step under
-    LOGIT_TOL)."""
+    served on both mounts, K1, K2 and K3 launched, and the batched-mount
+    turns (up to FLEET_MAX_REPLAYS) teacher-forced through the
+    single-stream kernel path: at every step the batched token's logit
+    within LOGIT_TOL of the step's largest, and at least FLEET_MIN_ARGMAX
+    of all steps its exact argmax. Which turns the host's timing batches,
+    and whether a bf16 near-tie falls in them, varies from run to run, so
+    the count of turns a fresh single-stream service repeats token for
+    token is printed, not required."""
     import torch
     from repro_torch.configs import PAPER_QWEN15_0_5B
     from repro_torch.edge import EdgeCluster, LLMClient
@@ -3661,41 +3686,46 @@ def phase_fleet(dev) -> dict:
         (total, mounts)
     assert cluster.node(FLEET_CHURN[0]).crashes == 1
 
-    # batched-mount turns, in order, against a fresh single-stream kernel
-    # service until FLEET_MIN_EQUAL are token-identical; a turn that differs
-    # must differ at a near-tie: at its first differing step the two tokens'
-    # logits (the kernel path teacher-forced with the batched tokens) lie
-    # within LOGIT_TOL of each other
+    # every batched-mount turn (up to FLEET_MAX_REPLAYS) teacher-forced
+    # through the single-stream kernel path: the batched token of each step
+    # within LOGIT_TOL of the step's largest logit, and the exact argmax at
+    # FLEET_MIN_ARGMAX of all steps; a fresh single-stream service replays
+    # each turn too, for the count of token-identical turns (printed only)
     fresh = TorchLLMService.create(model, cfg, max_len=2048, page_size=PS, kv_pages=512,
                                    device=dev, params=params)
     done = [r for r in batched_turns if "tokens" in r]
     checked = []
     for i, rec in enumerate(done[:FLEET_MAX_REPLAYS]):
+        toks = rec["tokens"]
         r = fresh.completion(rec["context"], rec["prompt"], rec["max_new"],
                              cache_key=f"check{i}")
-        entry = {"equal": r.token_ids == rec["tokens"], "tokens": len(rec["tokens"])}
-        if not entry["equal"]:
-            j = next((k for k, (a, b) in enumerate(zip(r.token_ids, rec["tokens"])) if a != b),
-                     None)
-            assert j is not None, ("lengths differ with no differing token", r.token_ids,
-                                   rec["tokens"])
-            ids = rec["context"] + rec["prompt"]
-            lg = teacher_forced_logits(cfg, params, ids, rec["tokens"][:j], dev)[j]
-            gap = (lg[r.token_ids[j]] - lg[rec["tokens"][j]]).abs().item()
-            entry.update(first_diff=j, logit_gap=gap)
-            assert gap < LOGIT_TOL, ("fleet batched vs single", entry)
-        checked.append(entry)
-        if sum(e["equal"] for e in checked) >= FLEET_MIN_EQUAL:
-            break
+        lg = teacher_forced_logits(cfg, params, rec["context"] + rec["prompt"], toks[:-1],
+                                   dev)
+        assert lg.shape[0] == len(toks) and torch.isfinite(lg).all(), (lg.shape, len(toks))
+        chosen = lg[torch.arange(len(toks), device=lg.device),
+                    torch.tensor(toks, device=lg.device)]
+        gaps = lg.max(dim=-1).values - chosen
+        checked.append({"tokens": len(toks), "equal": r.token_ids == toks,
+                        "argmax_steps": int((gaps == 0).sum().item()),
+                        "max_gap": gaps.max().item()})
+    n_steps = sum(e["tokens"] for e in checked)
+    n_argmax = sum(e["argmax_steps"] for e in checked)
+    max_gap = max(e["max_gap"] for e in checked)
     n_equal = sum(e["equal"] for e in checked)
-    differ = [e for e in checked if not e["equal"]]
-    log(f"fleet: {len(done)} batched-mount turns; {len(checked)} replayed on a fresh "
-        f"single-stream service: {n_equal} token-identical, the rest {json.dumps(differ)}")
-    assert n_equal >= FLEET_MIN_EQUAL, checked
+    log(f"fleet: {len(done)} batched-mount turns; {len(checked)} teacher-forced through the "
+        f"single-stream kernel path: {n_argmax} of {n_steps} steps the exact argmax (bound "
+        f"{FLEET_MIN_ARGMAX}), largest gap to the step's top logit {max_gap:.4f} (bound "
+        f"{LOGIT_TOL}); {n_equal} of {len(checked)} turns token-identical on a fresh "
+        f"single-stream service (printed, not required); per turn {json.dumps(checked)}")
+    assert checked, "no batched-mount turn finished"
+    assert max_gap <= LOGIT_TOL, ("fleet batched vs single", checked)
+    assert n_argmax >= FLEET_MIN_ARGMAX * n_steps, ("fleet batched vs single", checked)
     out = {"summary": summary, "wall_s": wall_s, "flips": flips, "flips_up": ups,
            "flips_down": downs, "batched_after_rush": still_batched, "flipped_back": back,
            "turns_per_mount": rush_served, "launches_per_mount": mounts,
            "launches": total, "batched_turns": len(done), "batched_vs_single": checked,
+           "replayed_steps": n_steps, "argmax_steps": n_argmax, "max_gap": max_gap,
+           "token_identical_turns": n_equal,
            "spec": FLEET_SPEC, "admission_limit": FLEET_ADMISSION, "churn": FLEET_CHURN}
     del cluster, fresh, params
     torch.cuda.empty_cache()
@@ -3868,10 +3898,11 @@ def _train_paper(dev, card: str) -> dict:
     from repro_torch.configs import PAPER_QWEN15_0_5B
     from repro_torch.data import BatchIterator
     from repro_torch.models import init_params
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.roofline import model_flops
     from repro_torch.training import (
         OptConfig, init_opt_state, load_checkpoint, make_train_step, save_checkpoint,
     )
-    from repro_torch.models.weights import tree_leaves
 
     cfg = PAPER_QWEN15_0_5B
     assert cfg.remat and cfg.param_dtype == "bfloat16"
@@ -3890,7 +3921,7 @@ def _train_paper(dev, card: str) -> dict:
     assert statistics.mean(losses[-5:]) < losses[0], losses
     p50 = statistics.median(ms[1:])
     tokens = TRAIN_B * TRAIN_S
-    mfu = 6 * cfg.active_param_count() * tokens / (p50 / 1e3) / BF16_FLOPS_PER_S
+    mfu = model_flops(cfg, "train", TRAIN_B, TRAIN_S) / (p50 / 1e3) / BF16_FLOPS_PER_S
     params, opt, _, prof = _profiled_step(make_train_step(cfg, opt_cfg), params, opt,
                                           batches[0], p50)
     log(f"train paper: profiled B {TRAIN_B} x {TRAIN_S} step {json.dumps(prof)}")
@@ -4036,6 +4067,186 @@ def phase_train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The multi-device launch's specs and analysis on one card: abstract
+# parameters, sharding specs, the meta FLOP count held to the card's, the
+# roofline of the trained step; no kernel launches
+# ---------------------------------------------------------------------------
+
+LAUNCH_MESHES = {"16x16": {"data": 16, "model": 16},
+                 "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+# leaves JAX's analytic ``param_count`` (6·N·D's N) leaves out: the q/k/v
+# biases, the final norm, Mamba2's dt_bias and conv_b
+LAUNCH_UNCOUNTED = ("bq", "bk", "bv", "final_norm", "dt_bias", "conv_b")
+PREFILL_TOKENS = 1024
+
+
+def _named_leaves(tree, names=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, names + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, names + (None,))
+    else:
+        yield names, tree
+
+
+def _shards(spec, shape, mesh, where) -> int:
+    """The number of pieces ``spec`` cuts a leaf of ``shape`` into on
+    ``mesh``; every sharded dim must divide."""
+    n = 1
+    for axis, dim in zip(tuple(spec), shape):
+        if axis is None:
+            continue
+        k = math.prod(mesh[a] for a in ((axis,) if isinstance(axis, str) else axis))
+        assert dim % k == 0, (where, spec, shape, mesh)
+        n *= k
+    return n
+
+
+def _launch_config(cfg) -> dict:
+    """(a) for one configuration at full width: its abstract tree on meta
+    (no CUDA memory), the element count against ``param_count``, and under
+    ``param_specs`` / ``fsdp_param_specs`` / ``opt_state_specs(zero1=True)``
+    on both meshes every spec dividing its dim and the bytes per device."""
+    import torch
+    from repro_torch.launch.sharding import fsdp_param_specs, opt_state_specs, param_specs
+    from repro_torch.models import abstract_params
+    from repro_torch.models.weights import jax_layout, tree_leaves
+    from repro_torch.training import init_opt_state
+
+    before = torch.cuda.memory_allocated()
+    tree = abstract_params(cfg)
+    opt = init_opt_state(tree)
+    stacked = list(_named_leaves(jax_layout(tree, torch.stack)))
+    specs = {"params_tp": param_specs(cfg, tree), "params_fsdp": fsdp_param_specs(cfg, tree),
+             "opt_zero1": opt_state_specs(cfg, opt, zero1=True)["m"]}
+    assert torch.cuda.memory_allocated() == before, (cfg.name, before)
+    assert all(t.is_meta for t in tree_leaves(tree) + tree_leaves(opt))
+    n = sum(t.numel() for _, t in stacked)
+    uncounted = sum(t.numel() for names, t in stacked if names[-1] in LAUNCH_UNCOUNTED)
+    if cfg.n_codebooks > 1:   # K token tables and heads, counted as one head and K tables
+        uncounted += (cfg.n_codebooks - 1) * cfg.vocab_size * cfg.d_model
+    assert n == cfg.param_count() + uncounted, (cfg.name, n, cfg.param_count(), uncounted)
+    per_device = {}
+    for mesh_name, mesh in LAUNCH_MESHES.items():
+        for kind, tree_specs in specs.items():
+            spec_leaves = tree_leaves(tree_specs)
+            assert len(spec_leaves) == len(stacked), (cfg.name, kind)
+            total = 0
+            for (names, t), spec in zip(stacked, spec_leaves):
+                width = 8 if kind == "opt_zero1" else t.element_size()   # m and v in f32
+                total += t.numel() * width // _shards(spec, t.shape, mesh, (cfg.name, names))
+            per_device[f"{kind}_{mesh_name}"] = total
+    return {"elements": n, "param_count": cfg.param_count(), "uncounted": uncounted,
+            "leaves": len(stacked), "bytes_per_device": per_device}
+
+
+def phase_launch(dev, train_p50_ms: float, card: str) -> dict:
+    """The launch's specs and analysis on the card: (a) ``_launch_config``
+    for the eleven configurations; (b) one more step of phase train's
+    full-width paper model (bf16, remat, B 8 x 1024) under
+    ``FlopCounterMode`` on the card, its count equal to ``step_flops`` on
+    meta, as a one-device ``RooflineResult`` beside the step's measured p50
+    (``train_p50_ms``); (c) the paper model's 1024-token prefill on the
+    plain path (no kernel launches in this phase) timed beside
+    ``migration_vs_reprefill(cfg, 1024, chips_per_pod=1).reprefill_s``.
+    (b) and (c) are printed with no bound. The six counters stay 0."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ALL, PAPER_QWEN15_0_5B
+    from repro_torch.core.mesh_context import migration_vs_reprefill
+    from repro_torch.data import BatchIterator
+    from repro_torch.launch.dryrun import step_flops
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_params, prefill
+    from repro_torch.roofline import RooflineResult, model_flops
+    from repro_torch.training import OptConfig, init_opt_state, make_train_step
+
+    counters = dict(_counters(), **_ssm_counters())
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    configs = {}
+    for name in sorted(ALL):
+        t0 = time.perf_counter()
+        configs[name] = dict(_launch_config(ALL[name]), seconds=time.perf_counter() - t0)
+        log(f"launch {name}: {json.dumps(configs[name])}")
+
+    cfg = PAPER_QWEN15_0_5B
+    shape = InputShape(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(BatchIterator(cfg, batch_size=TRAIN_B, seq_len=TRAIN_S)).items()}
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+    counted_ms = 1e3 * (time.perf_counter() - t0)
+    card_flops = counter.get_total_flops()
+    t0 = time.perf_counter()
+    meta_flops = step_flops(cfg, shape)
+    meta_s = time.perf_counter() - t0
+    assert math.isfinite(m["loss"].item())
+    assert card_flops == meta_flops, (card_flops, meta_flops)
+    roof = RooflineResult(arch=cfg.name, shape=shape.name, mesh="1", chips=1,
+                          hlo_flops=float(card_flops), hlo_bytes=0.0, collective_bytes=0.0,
+                          model_flops=model_flops(cfg, "train", TRAIN_B, TRAIN_S))
+    step_out = {"card": card, "flops_card": card_flops, "flops_meta": meta_flops,
+                "meta_count_s": meta_s, "counted_step_wall_ms": counted_ms,
+                "roofline": dict(roof.to_dict(), hlo_bytes="not counted",
+                                 memory_s="not counted", dominant="not counted"),
+                "measured_step_p50_ms": train_p50_ms,
+                "measured_over_compute_s": train_p50_ms / 1e3 / roof.compute_s}
+    log(f"launch train step ({card}): FlopCounterMode on the card {card_flops} = meta "
+        f"{meta_flops} ({meta_s:.2f} s); compute_s {roof.compute_s * 1e3:.3f} ms at "
+        f"{BF16_FLOPS_PER_S:.3g} FLOP/s vs phase train's p50 {train_p50_ms:.3f} ms "
+        f"({step_out['measured_over_compute_s']:.2f} x); useful_flops_ratio "
+        f"{roof.useful_flops_ratio:.4f}")
+    del opt, batch, m
+
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        300, cfg.vocab_size, size=(1, PREFILL_TOKENS)).astype(np.int32)).to(dev)
+    ms = []
+    with torch.no_grad():
+        for _ in range(6):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            logits, _, _ = prefill(params, cfg, ids, PREFILL_TOKENS)
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+    assert torch.isfinite(logits).all()
+    mig = migration_vs_reprefill(cfg, PREFILL_TOKENS, chips_per_pod=1)
+    prefill_out = {"card": card, "tokens": PREFILL_TOKENS, "route": "plain (reference)",
+                   "prefill_ms_p50": statistics.median(ms[1:]), "prefill_ms": ms,
+                   "reprefill_s": mig.reprefill_s, "migrate_s": mig.migrate_s,
+                   "state_bytes": mig.state_bytes, "winner": mig.winner}
+    prefill_out["measured_over_reprefill_s"] = \
+        prefill_out["prefill_ms_p50"] / 1e3 / mig.reprefill_s
+    log(f"launch prefill ({card}): {PREFILL_TOKENS} tokens on the plain path p50 "
+        f"{prefill_out['prefill_ms_p50']:.3f} ms vs the analysis's reprefill_s "
+        f"{mig.reprefill_s * 1e3:.4f} ms "
+        f"({prefill_out['measured_over_reprefill_s']:.2f} x); migrate_s "
+        f"{mig.migrate_s * 1e3:.4f} ms for {mig.state_bytes} state bytes -> {mig.winner}")
+    del params, logits
+    torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    seconds = time.perf_counter() - t_phase
+    log(f"launch: kernel launches in the phase {launches} (must all be 0); {seconds:.2f} s")
+    assert not any(launches.values()), launches
+    return {"card": card, "configs": configs, "train_step": step_out, "prefill": prefill_out,
+            "launches": launches, "seconds": seconds}
+
+
 SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
 
 
@@ -4104,6 +4315,15 @@ def main() -> int:
         return 1
     card = gpu_name_and_power()
     log(f"device: {card}")
+    t_start = time.perf_counter()
+    elapsed = {}
+
+    def mark(phase: str) -> None:
+        """Seconds since the start when ``phase`` ended: the whole script,
+        the kernels' build included, has 1200 s."""
+        elapsed[phase] = time.perf_counter() - t_start
+        log(f"elapsed after {phase}: {elapsed[phase]:.1f} s")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4120,23 +4340,35 @@ def main() -> int:
     for name, regs, spills in split_kernel_resources(build, ptxas):
         log(f"build: {name}: {regs} registers, {spills}")
     sass_tensor_core_check(build)
+    mark("build")
 
     n_layers = 24
     k1 = phase_k1(dev, n_layers)
+    mark("k1")
     k3 = phase_k3(dev, n_layers)
+    mark("k3")
     k4 = phase_k4(dev, n_layers)
+    mark("k4")
     k5 = phase_k5(dev, n_layers)
+    mark("k5")
     gqa = phase_gqa(dev, n_layers)
+    mark("gqa")
     svc, last_turn, launches, summary = phase_main(dev)
+    mark("main")
     diff = phase_equivalence(svc, last_turn, dev)
+    mark("equivalence")
     phase_profile(svc, last_turn, dev)
+    mark("profile")
     dsummary, dlaunches = phase_dense(svc.engine.params, dev)
+    mark("dense")
     k4["launches"] = dlaunches["flash_attention"]
     k5["launches"] = dlaunches["decode_attention"]
     del svc, last_turn
     torch.cuda.empty_cache()
     k2 = phase_k2(dev, n_layers)
+    mark("k2")
     bsvc, blaunches, bsummary, beq = phase_batched(dev)
+    mark("batched")
     # the launches reported are the batched path's: it runs all three kernels
     k1["launches"] = blaunches["paged_attention"]
     k2["launches"] = blaunches["shared_prefix"]
@@ -4146,39 +4378,56 @@ def main() -> int:
         f"{summary['decode_ms_per_token_p50']:.3f} ms per B = 1 token "
         f"({1e3 / summary['decode_ms_per_token_p50']:.2f} tokens/s)")
     migration = phase_migration(bsvc.server.params, dev)
+    mark("migration")
     del bsvc
     torch.cuda.empty_cache()
 
     from repro_torch.configs import MAMBA2_1_3B, ZAMBA2_7B
 
     k6 = phase_k6(dev)
+    mark("k6")
     ssm = phase_ssm_model(dev, MAMBA2_1_3B, {"ssd": MAMBA2_1_3B.n_layers}, {})
+    mark("mamba2")
     n_shared = ZAMBA2_7B.n_layers // ZAMBA2_7B.shared_attn_period
     zamba = phase_ssm_model(dev, ZAMBA2_7B,
                             {"ssd": ZAMBA2_7B.n_layers, "flash_attention": n_shared},
                             {"decode_attention": n_shared})
     k6["launches"] = ssm["launches"]["ssd"] + zamba["launches"]["ssd"]
+    mark("zamba2")
     # f32 kernel vs plain: Mamba2 at full depth, Zamba2 cut to its first 25
     # layers (4 shared-attention invocations; 9.3 GB of f32 weights)
     ssm_f32 = {"mamba2": phase_ssm_f32(dev, MAMBA2_1_3B, MAMBA2_1_3B.n_layers),
                "zamba2": phase_ssm_f32(dev, ZAMBA2_7B, 25)}
+    mark("ssm_f32")
     discedge = phase_discedge(dev)
+    mark("discedge")
     qwen2 = phase_qwen2(dev)
+    mark("qwen2")
     granite = phase_granite(dev)
+    mark("granite")
     fleet = phase_fleet(dev)
+    mark("fleet")
     torch.cuda.empty_cache()
     from repro_torch.configs import CHATGLM3_6B, QWEN2_VL_7B
 
     chatglm3 = phase_gqa_model(dev, CHATGLM3_6B, CHATGLM3_LOGIT_REL)
+    mark("chatglm3")
     qwen2_vl = phase_gqa_model(dev, QWEN2_VL_7B, QWEN2_VL_LOGIT_REL, vision=True)
+    mark("qwen2_vl")
     gemma2 = phase_gemma2(dev)
+    mark("gemma2")
     from repro_torch.configs import NEMOTRON_4_340B
 
     log(f"{NEMOTRON_4_340B.name}: {NEMOTRON_CUT}")
     nemotron = phase_gqa_model(dev, NEMOTRON_4_340B.replace(n_layers=NEMOTRON_LAYERS),
                                NEMOTRON_LOGIT_REL, f32_layers=NEMOTRON_F32_LAYERS)
+    mark("nemotron")
     musicgen = phase_musicgen(dev)
+    mark("musicgen")
     train = phase_train(dev)
+    mark("train")
+    launch = phase_launch(dev, train["paper"]["step_ms_p50"], card)
+    mark("launch")
     # the GQA edges' bf16 errors count in each kernel's max_abs_err
     for kk in (k1, k2, k3, k4, k5):
         kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
@@ -4212,6 +4461,8 @@ def main() -> int:
     print(json.dumps({"nemotron_path": nemotron}))
     print(json.dumps({"musicgen_path": musicgen}))
     print(json.dumps({"train_path": train}))
+    print(json.dumps({"launch_path": launch}))
+    print(json.dumps({"elapsed_s": elapsed}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,10 @@ a GPU that raises unless ``--device cpu`` is given):
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-qwen1.5-0.5b --ckpt out.msgpack
 
 ``--dry-run`` (JAX: lower the full config on the production mesh) needs the
-multi-device launch, which is not ported yet: it exits non-zero and says so.
+multi-device launch's execution half (the device mesh that applies
+``launch.sharding``'s specs), which is not ported yet: it exits with code 2
+and says so. The specs, shapes and one device's cost count
+(``launch.dryrun.step_flops``) are ported.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        print("repro_torch.launch.train: --dry-run needs the multi-device launch "
-              "(mesh, sharding, dry-run), which the port does not have yet",
-              file=sys.stderr)
+        print("repro_torch.launch.train: --dry-run needs the multi-device launch's "
+              "execution half (the device mesh that applies the sharding specs, and the "
+              "dry-run's lowering on it), which the port does not have yet; the specs and "
+              "the cost count on one device are in repro_torch.launch.sharding and "
+              "repro_torch.launch.dryrun", file=sys.stderr)
         raise SystemExit(2)
 
     import torch

@@ -1,6 +1,7 @@
 from .config import ModelConfig
 from .prefill import prefill, prefill_append, prefill_chunk_paged, supports_append
 from .transformer import (
+    abstract_params,
     decode_step,
     decode_step_paged,
     forward_full,
@@ -12,6 +13,7 @@ from .weights import params_from_numpy, params_to_numpy
 
 __all__ = [
     "ModelConfig",
+    "abstract_params",
     "decode_step",
     "decode_step_paged",
     "forward_full",

@@ -127,9 +127,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
     (``repro.models.transformer.init_params``), drawn from a seeded
     ``torch.Generator`` on ``device`` (default ``"cuda"``). The draws differ
     from ``jax.random``'s; tests that compare the packages bridge the JAX
-    weights with ``models.weights.params_from_numpy`` instead."""
+    weights with ``models.weights.params_from_numpy`` instead. On the
+    ``"meta"`` device nothing is drawn or stored (``abstract_params``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    # a meta generator does not exist; meta draws take a CPU one and make
+    # no numbers
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     params: Dict = {"embed": init_embed(cfg, gen, dev), "groups": []}
     for spec in layer_groups(cfg):
@@ -150,6 +153,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> D
     if cfg.layer_pattern == "zamba_hybrid":
         params["shared_attn"] = _init_dense_block(cfg, gen, dev)
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The parameter tree of ``cfg`` on the meta device: every leaf's shape
+    and dtype, no storage (JAX's ``abstract_params``, for specs and cost
+    counts of full-size configurations)."""
+    return init_params(cfg, device="meta")
 
 
 def pair_windows(cfg: ModelConfig) -> Tuple[int, int]:

@@ -7,8 +7,10 @@ reference path: no kernel has a backward in either package, and both
 refuse a kernel config (``_require_reference``). Remat is
 ``cfg.remat`` in ``models.transformer.forward_full``. Gradient
 accumulation is a loop over microbatches (cfg.grad_accum) in place of
-JAX's ``lax.scan``. JAX's ``grad_specs`` (a sharding constraint on the
-gradients) is left out until the multi-device launch is ported. A batch is
+JAX's ``lax.scan``. ``grad_specs`` (JAX's sharding constraint on the
+gradients, a partition-spec tree) needs a device mesh, which is not ported
+yet: ``None`` changes nothing, and a spec tree raises, as JAX's
+``with_sharding_constraint`` does with no mesh in context. A batch is
 a dict of tensors on the params' device: ``tokens`` and ``labels``, and
 optionally ``mask``, ``positions`` and ``patch_embeds``.
 """
@@ -97,13 +99,18 @@ def _value_and_grad(params: Any, cfg: ModelConfig, batch: Batch):
             tree_map(lambda _: next(it), params))
 
 
-def grads_fn(params: Any, cfg: ModelConfig, batch: Batch):
+def grads_fn(params: Any, cfg: ModelConfig, batch: Batch, grad_specs: Any = None):
     """Value-and-grad with optional microbatch accumulation (mean over
     microbatches): returns (loss, metrics, grads), grads in the params'
     structure. With ``cfg.grad_accum`` > 1 the gradients are summed in f32
     (``acc + g / n``, JAX's order) and the metrics are JAX's ``{"ce":
-    loss, "aux": 0}``. JAX's ``grad_specs`` pins the gradients' sharding on
-    a mesh; it comes with the multi-device launch."""
+    loss, "aux": 0}``. ``grad_specs`` would pin the gradients' sharding on
+    a mesh: ``None`` is a no-op, anything else raises ``RuntimeError``
+    (no mesh is bound)."""
+    if grad_specs is not None:
+        raise RuntimeError(
+            "grad_specs constrains the gradients' sharding and requires a device mesh in "
+            "context; none is bound (the device mesh is not ported yet)")
     n = cfg.grad_accum
     if n <= 1:
         return _value_and_grad(params, cfg, batch)
@@ -126,20 +133,22 @@ def train_step(
     batch: Batch,
     cfg: ModelConfig,
     opt_cfg: OptConfig,
+    grad_specs: Any = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """``grads_fn`` then ``adamw_update`` (params and moments updated in
     place)."""
-    loss, metrics, grads = grads_fn(params, cfg, batch)
+    loss, metrics, grads = grads_fn(params, cfg, batch, grad_specs=grad_specs)
     params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
     out = {"loss": loss, **metrics, **opt_metrics}
     return params, opt_state, out
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, grad_specs: Any = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
-    it runs on the device of the tensors it is given."""
+    it runs on the device of the tensors it is given. ``grad_specs`` as in
+    ``grads_fn``."""
 
     def step(params, opt_state, batch):
-        return train_step(params, opt_state, batch, cfg, opt_cfg)
+        return train_step(params, opt_state, batch, cfg, opt_cfg, grad_specs=grad_specs)
 
     return step

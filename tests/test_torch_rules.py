@@ -48,7 +48,11 @@ _ISOLATED = textwrap.dedent(
                  "repro_torch.configs.nemotron_4_340b", "repro_torch.kernels.guard",
                  "repro_torch.training.optimizer", "repro_torch.training.trainer",
                  "repro_torch.training.checkpoint", "repro_torch.training._msgpack",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.shapes", "repro_torch.launch.sharding",
+                 "repro_torch.launch.dryrun", "repro_torch.models.pjit_rules",
+                 "repro_torch.core.mesh_context", "repro_torch.roofline",
+                 "repro_torch.roofline.analysis"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -71,8 +75,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # every module was walked: the kernels, the serving stack, the
     # DisCEdge system layers (core, store, edge, data, launch), the fleet
     # layer, the MoE layer and the configs of qwen2, granite, dbrx,
-    # chatglm3, qwen2-vl and gemma2, the training modules and launcher
-    assert int(out.stdout.strip().splitlines()[-1]) >= 85
+    # chatglm3, qwen2-vl and gemma2, the training modules and launcher,
+    # and the launch's specs and analysis (mesh, shapes, sharding, dryrun,
+    # pjit_rules, mesh_context, roofline and its analysis)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 93
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

@@ -230,7 +230,22 @@ non-zero):
                1024-token plain-path prefill timed beside
                ``migration_vs_reprefill(...).reprefill_s``
                (``{"launch_path": ...}``);
-27. result  — JSON lines with every kernel's numbers (K1-K6; launches
+27. mesh    — the multi-device launch's execution half, on one card
+               (no kernel launches: the six counters stay 0): (a) a
+               one-rank NCCL group with a (1, 1) (data, model) mesh, the
+               full-width paper model's ``grads_fn`` in f32 (B 8 x 1024,
+               remat) as DTensors with ``constrain`` live and
+               ``grad_specs``, against the plain step on the same weights
+               and batch (loss within TRAIN_LOSS_REL, each gradient leaf
+               within TRAIN_GRAD_REL x its max); (b) one granite-moe layer
+               at full width in f32 through the shard-map MoE on that mesh
+               against the gspmd path; (c) ``python -m
+               repro_torch.launch.dryrun --arch paper-qwen1.5-0.5b --shape
+               train_4k --device cuda`` as a subprocess (started first, it
+               runs beside (a) and (b)): its argument bytes per device
+               equal the specs' arithmetic, the rest printed with no bound
+               (``{"mesh_path": ...}``);
+28. result  — JSON lines with every kernel's numbers (K1-K6; launches
                also count phases 23-24), the card's name and power limit,
                and last ``{"ok": true, "device": {...}}``.
 
@@ -4247,6 +4262,172 @@ def phase_launch(dev, train_p50_ms: float, card: str) -> dict:
             "launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The multi-device launch's execution half on one card: DTensors on a
+# one-rank NCCL mesh held to the plain path, the shard-map MoE, the dry-run
+# on a fake 16 x 16 group; no kernel launches
+# ---------------------------------------------------------------------------
+
+MESH_MOE_TOKENS = 1024
+MESH_MOE_REL = 1e-5   # shard map vs gspmd on a 1 x 1 mesh, f32: the same
+                      # routing, capacity and combine order; max |diff| <=
+                      # 1e-5 x the gspmd output's max
+
+
+def _mesh_dry_run_bytes(cfg, shape) -> int:
+    """The dry-run's argument bytes per device on 16 x 16 by the specs'
+    arithmetic (``_launch_config``): parameters under ``param_specs``, the
+    two f32 moments under ZeRO-1 and the int32 step, int32 tokens and
+    labels over ``data``."""
+    per = _launch_config(cfg)["bytes_per_device"]
+    batch = 2 * shape.global_batch * shape.seq_len * 4 // LAUNCH_MESHES["16x16"]["data"]
+    return per["params_tp_16x16"] + per["opt_zero1_16x16"] + 4 + batch
+
+
+def _mesh_train(dev, mesh, card: str) -> dict:
+    """(a) The paper model's gradients as DTensors on the 1 x 1 mesh vs the
+    plain path, f32 (TF32 off), same weights and batch."""
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.launch.sharding import distribute_tree, param_specs
+    from repro_torch.models import init_params
+    from repro_torch.models.pjit_rules import P, rules_for, sharding_rules
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.training import grads_fn
+
+    cfg = PAPER_QWEN15_0_5B.replace(param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    batch = _train_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    t0 = time.perf_counter()
+    loss, _, grads = grads_fn(params, cfg, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    specs = param_specs(cfg, params, model_size=1)
+    dparams = distribute_tree(params, specs, mesh)
+    dbatch = distribute_tree(batch, {k: P("data", *(None,) * (v.ndim - 1))
+                                     for k, v in batch.items()}, mesh)
+    t0 = time.perf_counter()
+    with sharding_rules(dict(rules_for(cfg, False, model_size=1), _mesh=mesh)):
+        dloss, _, dgrads = grads_fn(dparams, cfg, dbatch, grad_specs=specs)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    assert all(type(g).__name__ == "DTensor" for g in tree_leaves(dgrads))
+    loss_rel = abs(dloss.full_tensor().item() - loss.item()) / abs(loss.item())
+    rel = []
+    for a, b in zip(tree_leaves(grads), tree_leaves(dgrads)):
+        scale = a.abs().max().item()
+        rel.append((a - b.full_tensor()).abs().max().item() / scale)
+    out = {"card": card, "layers": cfg.n_layers, "batch": [TRAIN_B, TRAIN_S], "dtype": "float32",
+           "loss": loss.item(), "loss_rel": loss_rel, "grad_rel_max": max(rel),
+           "leaves": len(rel), "plain_s": plain_s, "mesh_s": mesh_s}
+    log(f"mesh train ({card}): paper model f32 B {TRAIN_B} x {TRAIN_S} on the 1 x 1 mesh: loss "
+        f"rel {loss_rel:.2e} (bound {TRAIN_LOSS_REL}), worst of {len(rel)} gradient leaves "
+        f"{max(rel):.2e} x its max (bound {TRAIN_GRAD_REL}); plain {plain_s:.2f} s, as "
+        f"DTensors {mesh_s:.2f} s (the first run: DTensor's sharding propagation)")
+    assert loss_rel <= TRAIN_LOSS_REL, loss_rel
+    assert max(rel) <= TRAIN_GRAD_REL, max(rel)
+    del params, dparams, grads, dgrads, batch, dbatch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe(dev, mesh) -> dict:
+    """(b) One granite-moe layer's experts at full width, f32, on
+    MESH_MOE_TOKENS tokens: the shard-map MoE on the mesh vs gspmd."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.models.moe import init_moe, moe_forward
+    from repro_torch.models.pjit_rules import P, rules_for, sharding_rules
+    from repro_torch.models.weights import tree_map
+
+    cfg = GRANITE_MOE_3B_A800M.replace(param_dtype="float32", compute_dtype="float32")
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, MESH_MOE_TOKENS, cfg.d_model),
+                                             dtype=np.float32)).to(dev)
+    want, want_aux = moe_forward(p, x, cfg)
+    sm = cfg.replace(moe_impl="shard_map")
+    dp = distribute_tree(p, tree_map(lambda t: P(), p), mesh)
+    dx = distribute_tree(x, P("data", None, None), mesh)
+    with sharding_rules(dict(rules_for(sm, False, model_size=1), _mesh=mesh)):
+        got, aux = moe_forward(dp, dx, sm)
+    got, aux = got.full_tensor(), aux.full_tensor()
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    out = {"experts": cfg.n_experts, "top_k": cfg.top_k, "d_model": cfg.d_model,
+           "tokens": MESH_MOE_TOKENS, "out_rel": rel, "aux": aux.item(),
+           "aux_gspmd": want_aux.item()}
+    log(f"mesh moe: granite layer f32, {MESH_MOE_TOKENS} tokens, shard map vs gspmd max |diff| "
+        f"{rel:.2e} x max (bound {MESH_MOE_REL}); aux {aux.item():.8f} vs {want_aux.item():.8f}")
+    assert rel <= MESH_MOE_REL, rel
+    assert abs(aux.item() - want_aux.item()) <= MESH_MOE_REL * abs(want_aux.item())
+    return out
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """The multi-device launch's execution half on the card: (c) the
+    dry-run started first in a subprocess, (a) ``_mesh_train`` and (b)
+    ``_mesh_moe`` on a one-rank NCCL group meanwhile; the group destroyed at
+    the end. The six counters stay 0."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.launch.shapes import SHAPES
+
+    counters = dict(_counters(), **_ssm_counters())
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "mesh_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    record_path = out_dir / "paper_train_4k.json"
+    record_path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", PAPER_QWEN15_0_5B.name,
+           "--shape", "train_4k", "--device", dev.type, "--out", str(record_path)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           env=env, cwd=str(ROOT))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                    init_method=f"file://{tmp}/rdzv", rank=0, world_size=1)
+            try:
+                mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+                out = {"card": card, "train": _mesh_train(dev, mesh, card),
+                       "moe": _mesh_moe(dev, mesh)}
+            finally:
+                dist.destroy_process_group()
+        dry_out, _ = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    for line in dry_out.splitlines():
+        if line.startswith(("==", "  ")) or "combos" in line:
+            log(f"mesh dry-run: {line}")
+    assert dry.returncode == 0, dry_out[-4000:]
+    rec = json.loads(record_path.read_text())[0]
+    want = _mesh_dry_run_bytes(PAPER_QWEN15_0_5B, SHAPES["train_4k"])
+    assert rec["argument_bytes_per_device"] == want, (rec["argument_bytes_per_device"], want)
+    assert rec["device_type"] == dev.type, rec
+    out["dry_run"] = {k: rec[k] for k in (
+        "device_type", "argument_bytes_per_device", "hlo_flops", "hlo_bytes", "collectives",
+        "collective_bytes", "comm_debug_count", "compute_s", "memory_s", "collective_s",
+        "dominant", "model_flops", "useful_flops_ratio", "step_s")}
+    out["dry_run"]["argument_bytes_spec_arithmetic"] = want
+    launches = {k: c.launches for k, c in counters.items()}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh: kernel launches in the phase {launches} (must all be 0); "
+        f"{out['seconds']:.2f} s")
+    assert not any(launches.values()), launches
+    return out
+
+
 SPLIT_KERNELS = ("paged_attention_split", "shared_prefix_split", "decode_attention_split")
 
 
@@ -4428,6 +4609,8 @@ def main() -> int:
     mark("train")
     launch = phase_launch(dev, train["paper"]["step_ms_p50"], card)
     mark("launch")
+    mesh = phase_mesh(dev, card)
+    mark("mesh")
     # the GQA edges' bf16 errors count in each kernel's max_abs_err
     for kk in (k1, k2, k3, k4, k5):
         kk["max_abs_err"] = max(kk["max_abs_err"], gqa["errors"][kk["name"]])
@@ -4462,6 +4645,7 @@ def main() -> int:
     print(json.dumps({"musicgen_path": musicgen}))
     print(json.dumps({"train_path": train}))
     print(json.dumps({"launch_path": launch}))
+    print(json.dumps({"mesh_path": mesh}))
     print(json.dumps({"elapsed_s": elapsed}))
     print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in (k1, k2, k3, k4, k5, k6)]}))
     print(gpu_name_and_power())

@@ -1,27 +1,75 @@
-"""Context migration across the ``pod`` axis, its analysis half
+"""On-mesh context migration across the ``pod`` axis
 (``repro.core.mesh_context``).
 
 The paper replicates *token* context between edge nodes and leaves
 "directly manipulating the internal KV cache" as future work (§5). With
-the pod axis standing in for edge sites, the receiving site can either
-re-prefill the tokenized context or receive the model's internal state
-(attention KV caches / SSM states) and skip the prefill.
+the pod axis standing in for edge sites, both levels exist as mesh
+programs on a ``DeviceMesh`` with a ``pod`` dim:
+
+- ``migrate_tokens``: the paper's own mechanism, the tokenized session
+  context (a (pods, B, L) int32 buffer) moves pod to pod;
+- ``migrate_kv_cache``: the model's *internal* state (attention KV caches /
+  SSM states) moves pod to pod, so the receiving pod skips re-prefilling
+  the context.
+
 ``migration_vs_reprefill`` quantifies that trade per architecture: ship
 state bytes over the device links vs re-run the prefill's FLOPs, priced
 with the card's constants (``launch.mesh``). For SSM archs the state is
 O(1) in context length, so migration wins by orders of magnitude.
-
-The mesh programs that move the state (JAX's ``migrate_tokens`` and
-``migrate_kv_cache``) come with the device mesh, which is not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 from ..launch.mesh import ICI_BW_PER_LINK, PEAK_FLOPS_BF16
 from ..models.config import ModelConfig
 from ..models.ssm import conv_dim
+from ..models.weights import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Mesh programs
+# ---------------------------------------------------------------------------
+
+def _migrate_leaf(mesh, x, src_pod: int, dst_pod: int):
+    """One DTensor sharded on its leading dim over ``pod``: dst pod's shard
+    replaced by src pod's, every other shard unchanged (JAX's ``ppermute``
+    [(src, dst)] then ``where(me == dst, moved, x)``). Each rank of src
+    sends its block to the rank of dst with the same (data, model)
+    coordinates, so the sharding within a pod is untouched."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    pod = mesh.mesh_dim_names.index("pod")
+    assert isinstance(x, DTensor) and x.placements[pod] == Shard(0), x
+    local = x.to_local()
+    me = mesh.get_local_rank(pod)
+    if src_pod != dst_pod and me in (src_pod, dst_pod):
+        group = mesh.get_group(pod)
+        if me == src_pod:
+            dist.send(local.contiguous(), dist.get_global_rank(group, dst_pod), group=group)
+        else:
+            local = torch.empty_like(local)
+            dist.recv(local, dist.get_global_rank(group, src_pod), group=group)
+    return DTensor.from_local(local, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def migrate_tokens(mesh, token_buffer, src_pod: int, dst_pod: int):
+    """Move a (pods, B, L) pod-sharded tokenized-context buffer's src shard
+    to dst. Returns the updated buffer (a new DTensor)."""
+    return _migrate_leaf(mesh, token_buffer, src_pod, dst_pod)
+
+
+def migrate_kv_cache(mesh, caches: Any, src_pod: int, dst_pod: int) -> Any:
+    """Move every pod-sharded leaf of a cache tree from src to dst pod.
+    Leaves carry ``pod`` on their leading dim; their data/model sharding
+    within the pod is untouched (the transfer is pure pod-to-pod traffic,
+    what the roofline's collective term prices)."""
+    return tree_map(lambda leaf: _migrate_leaf(mesh, leaf, src_pod, dst_pod), caches)
 
 
 @dataclass

@@ -23,9 +23,16 @@ the tree (``models.weights.jax_layout``: each group's layers stacked on
 leading axes), whatever layout the tree given is in. The layout matters:
 ``_shard_first_free_dim`` may put ``data`` on a stack axis (Mamba2-1.3B's
 48-layer ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and ``conv_b``), which
-a per-layer leaf does not have. Cutting the specs into the port's
-per-layer trees needs a placement for that axis, which comes with the
-device mesh.
+a per-layer leaf does not have.
+
+``layer_specs`` cuts stacked specs into the port's per-layer tree by
+dropping each leaf's stack entries, and ``distribute_tree`` places a tree
+(parameters, moments, a batch, caches) on a ``DeviceMesh`` by its specs as
+DTensors. Where a dropped stack entry named ``data`` (only Mamba2-1.3B's
+five leaves above, under FSDP or ZeRO-1), the per-layer leaf is replicated
+over ``data``: a deliberate difference from JAX of 124,560 bytes per
+device on 16 x 16 (8,304 bytes of the five leaves per device in JAX,
+132,864 here).
 """
 
 from __future__ import annotations
@@ -221,3 +228,38 @@ def logits_spec(cfg: ModelConfig, multi_pod: bool, batched: bool = True) -> P:
     if cfg.n_codebooks > 1:
         return P(lead, None, None, None)
     return P(lead, None, None)
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on a device mesh
+# ---------------------------------------------------------------------------
+
+def layer_specs(like: Any, specs: Any) -> Any:
+    """``specs`` (a spec tree in JAX's stacked layout, or one whose layout
+    already matches) cut into the structure of the port tree ``like``: a
+    group's one stacked spec tree serves each of its layers, each spec
+    keeping its last ``leaf.ndim`` entries (the stack entries dropped: L
+    for dense, moe and mamba groups, L/2 for gemma pairs, (n_groups,
+    period) for zamba)."""
+    if isinstance(like, dict):
+        return {k: layer_specs(v, specs[k]) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if isinstance(specs, (list, tuple)):
+            return type(like)(layer_specs(x, s) for x, s in zip(like, specs))
+        return type(like)(layer_specs(x, specs) for x in like)
+    return P(*tuple(specs)[len(specs) - like.ndim:])
+
+
+def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
+    """``tree``'s tensors as DTensors on ``mesh``, each placed by its spec
+    (``layer_specs(tree, specs)``, ``pjit_rules.placements``). The tensors
+    keep their device: meta tensors give meta shards (nothing allocated),
+    and tensors on the mesh's device are cut into this rank's shards
+    (every rank must hold the same values: ``distribute_tensor`` sends rank
+    0's)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..models.pjit_rules import placements
+
+    return tree_map(lambda t, s: distribute_tensor(t, mesh, placements(s, mesh)),
+                    tree, layer_specs(tree, specs))

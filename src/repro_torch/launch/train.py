@@ -8,11 +8,10 @@ a GPU that raises unless ``--device cpu`` is given):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-qwen1.5-0.5b --ckpt out.msgpack
 
-``--dry-run`` (JAX: lower the full config on the production mesh) needs the
-multi-device launch's execution half (the device mesh that applies
-``launch.sharding``'s specs), which is not ported yet: it exits with code 2
-and says so. The specs, shapes and one device's cost count
-(``launch.dryrun.step_flops``) are ported.
+``--dry-run`` runs the full config's train_4k step on the production mesh
+of a fake process group instead (``python -m repro_torch.launch.dryrun``,
+in a subprocess, as JAX's does: the dry-run owns its process's default
+group), on ``--device``'s mesh type, and exits with its code.
 """
 
 from __future__ import annotations
@@ -32,29 +31,34 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile the FULL config on the production mesh (not ported)")
+                    help="run the FULL config's step on the production mesh (fake group)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="device to train on: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from ..device import resolve_device
+
+    device = resolve_device(args.device)
     if args.dry_run:
-        print("repro_torch.launch.train: --dry-run needs the multi-device launch's "
-              "execution half (the device mesh that applies the sharding specs, and the "
-              "dry-run's lowering on it), which the port does not have yet; the specs and "
-              "the cost count on one device are in repro_torch.launch.sharding and "
-              "repro_torch.launch.dryrun", file=sys.stderr)
-        raise SystemExit(2)
+        # the dry-run owns its process's default group
+        import os
+        import subprocess
+
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", args.arch, "--shape", "train_4k"]
+        if args.multi_pod:
+            cmd.append("--multi-pod")
+        cmd += ["--device", device.type]
+        raise SystemExit(subprocess.run(cmd, env=os.environ).returncode)
 
     import torch
 
     from ..configs import get_config
     from ..data import BatchIterator
-    from ..device import resolve_device
     from ..models import init_params
     from ..training import OptConfig, init_opt_state, make_train_step, save_checkpoint
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
     print(f"arch={cfg.name} (reduced) params={cfg.param_count()/1e6:.1f}M")
     params = init_params(cfg, seed=0, device=device)

@@ -27,6 +27,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import Params, apply_rope, dtype_of, init_normal, pos1d, softcap
+from .pjit_rules import constrain, flatten, is_dtensor, unflatten
 
 NEG_INF = -1e30
 
@@ -54,16 +55,79 @@ def qkv_project(
     p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), RoPE applied."""
-    b, s, _ = x.shape
+    b, s, _ = x.shape   # unpacked as JAX does: a (B,S,K,D) input raises its ValueError
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = unflatten(q, 2, (cfg.n_heads, cfg.d_head))
+    k = unflatten(k, 2, (cfg.n_kv_heads, cfg.d_head))
+    v = unflatten(v, 2, (cfg.n_kv_heads, cfg.d_head))
     return apply_rope(cfg, q, positions), apply_rope(cfg, k, positions), v
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    DTensor built from a local gradient takes its strides as those of its
+    global shape, and a permuted einsum gradient would break later views."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: int):
+    """``_sdpa_reference`` of DTensors, run on each rank's shards.
+
+    Attention is local once its inputs are placed so: per mesh dim, the
+    batch sharded alike everywhere; q's sequence sharded (context
+    parallel) with the keys whole; or q's heads sharded, with K/V's heads
+    sharded alike where they divide, else whole and each rank taking the
+    KV heads of its query heads. Any other placement of q is gathered.
+    Where K/V are whole but q is cut, each rank's share of their gradient
+    is summed. Run as DTensor operators, the einsums' internal flattening
+    of two sharded dims is refused by some DTensor versions."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    pq, pkv, ppos_q, ppos_kv, gkv = [], [], [], [], []
+    kv_lo, kv_n = 0, kvh   # the local KV heads to take (all of a sharded K/V's)
+    for i, p in enumerate(q.placements):
+        size = mesh.size(i)
+        if isinstance(p, Shard) and p.dim in (0, 1, 2) and q.shape[p.dim] % size == 0:
+            pq.append(p)
+        else:
+            pq.append(Replicate())
+        d = pq[-1].dim if isinstance(pq[-1], Shard) else None
+        kv_shard = d == 0 or (d == 2 and kvh % size == 0)
+        if d == 2 and kv_shard:
+            kv_n = kvh // size
+        pkv.append(Shard(d) if kv_shard else Replicate())
+        gkv.append(pkv[-1] if kv_shard or d is None else Partial())
+        ppos_q.append(Shard(d) if d in (0, 1) else Replicate())
+        ppos_kv.append(Shard(0) if d == 0 else Replicate())
+        if d == 2 and not kv_shard:   # this rank's query heads -> their KV heads
+            h_loc = h // size
+            r = mesh.get_local_rank(i)
+            assert h_loc % g == 0 or g % h_loc == 0, (h, kvh, size)
+            kv_lo, kv_n = (r * h_loc) // g, max(1, h_loc // g)
+
+    def local(t, pl, grad=None):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return _ContiguousGrad.apply(t.redistribute(mesh, pl).to_local(grad_placements=grad))
+
+    k_l, v_l = (local(t, pkv, gkv)[:, :, kv_lo:kv_lo + kv_n] for t in (k, v))
+    out = _sdpa_reference(local(q, pq), k_l, v_l, local(q_pos, ppos_q), local(kv_pos, ppos_kv),
+                          local(kv_valid, ppos_kv), cfg, window)
+    return DTensor.from_local(out.contiguous(), mesh, pq, run_check=False)
 
 
 def _sdpa_reference(
@@ -77,11 +141,14 @@ def _sdpa_reference(
     window: int,
 ) -> torch.Tensor:
     """Masked GQA SDPA in f32; causality and window on positions. Masked
-    logits take NEG_INF (-1e30), never -inf."""
-    b, s, h, dh = q.shape
+    logits take NEG_INF (-1e30), never -inf. DTensors run on their shards
+    (``_sdpa_on_shards``)."""
+    if is_dtensor(q):
+        return _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg, window)
+    h, dh = q.shape[2:]
     kvh = k.shape[2]
     g = h // kvh
-    q5 = q.reshape(b, s, kvh, g, dh)
+    q5 = q.reshape(q.shape[:2] + (kvh, g, dh))
     scale = 1.0 / np.sqrt(dh)
     logits = torch.einsum("bskgd,btkd->bkgst", q5.float(), k.float()) * scale
     logits = softcap(logits, cfg.attn_softcap)
@@ -92,7 +159,7 @@ def _sdpa_reference(
     logits = torch.where(mask[:, None, None], logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
 
 
 def attention_forward(
@@ -108,6 +175,11 @@ def attention_forward(
     ``return_kv``, also returns the rotated K and V (for cache seeding).
     The kernel path is ``kernels.flash_attention`` (K4)."""
     q, k, v = qkv_project(p, x, positions, cfg)
+    # logical sharding: context-parallel q (seq over model) when heads can't
+    # shard; K/V stay seq-replicated
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     q_pos = pos1d(positions)
     b, s = q_pos.shape
     valid = (
@@ -122,7 +194,7 @@ def attention_forward(
         )
     else:
         out = _sdpa_reference(q, k, v, q_pos, q_pos, valid, cfg, window)
-    out = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
+    out = flatten(out, 2, 2) @ p["wo"]
     if return_kv:
         return out, k, v
     return out
@@ -132,24 +204,22 @@ def _project_q_step(
     p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 ) -> torch.Tensor:
     """Rope'd query for the current decode token: (B,1,D) -> (B,1,H,Dh)."""
-    b = x.shape[0]
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return apply_rope(cfg, q.reshape(b, 1, cfg.n_heads, cfg.d_head), positions)
+    return apply_rope(cfg, unflatten(q, 2, (cfg.n_heads, cfg.d_head)), positions)
 
 
 def project_kv_step(
     p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K/V for the current decode token (to be inserted into the cache)."""
-    b = x.shape[0]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    k = unflatten(k, 2, (cfg.n_kv_heads, cfg.d_head))
+    v = unflatten(v, 2, (cfg.n_kv_heads, cfg.d_head))
     return apply_rope(cfg, k, positions), v
 
 
@@ -167,7 +237,6 @@ def attention_decode(
     """Single-step decode against a linear cache, full or ring (``kv_pos``
     gives each slot's position, so a ring's slots need no order). The
     kernel path is ``kernels.decode_attention`` (K5)."""
-    b = x.shape[0]
     q_pos = pos1d(positions)
     q = _project_q_step(p, x, positions, cfg)
     if cfg.attn_impl != "reference":
@@ -179,7 +248,7 @@ def attention_decode(
         )
     else:
         out = _sdpa_reference(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, cfg, window)
-    return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p["wo"]
+    return flatten(out, 2, 2) @ p["wo"]
 
 
 def attention_decode_paged(

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .pjit_rules import is_dtensor, unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -185,15 +186,30 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> 
     return p
 
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``. A DTensor table is gathered over its vocab
+    dim first (DTensor's masked vocab-parallel lookup loses its mask when
+    an operator comes between it and its reduction) and read through
+    ``F.embedding`` (not every DTensor version shards the backward of an
+    index, ``index_put``)."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+              for p in table.placements]
+        return F.embedding(ids.long(), table.redistribute(table.device_mesh, pl))
+    return table[ids.long()]
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens: (B, S) int ids, or (B, S, K) for K > 1 codebooks, whose K
     embeddings are summed in the table's dtype, k = 0..K-1 (JAX's order)."""
     if cfg.n_codebooks > 1:
-        out = p["tok"][0][tokens[..., 0].long()]
+        out = _lookup(p["tok"][0], tokens[..., 0])
         for k in range(1, cfg.n_codebooks):
-            out = out + p["tok"][k][tokens[..., k].long()]
+            out = out + _lookup(p["tok"][k], tokens[..., k])
         return out
-    return p["tok"][tokens.long()]
+    return _lookup(p["tok"], tokens)
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -206,7 +222,7 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         logits = x @ p["lm_head"]
     if cfg.n_codebooks > 1:
-        logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks, cfg.vocab_size)
+        logits = unflatten(logits, 2, (cfg.n_codebooks, cfg.vocab_size))
     return softcap(logits, cfg.logit_softcap)
 
 

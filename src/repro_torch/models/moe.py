@@ -17,9 +17,12 @@ gathers its K slots, sorted by slot (the order in which JAX's scatter
 visits them), and adds them one at a time in the compute dtype: the same
 sums, in a fixed order, bit-identical from run to run.
 
-``cfg.moe_impl == "shard_map"`` (JAX's explicit expert parallelism, which
-needs a device mesh) takes this path too, as JAX does when no mesh rules
-are active; the multi-device form is not ported yet.
+``cfg.moe_impl == "shard_map"`` is JAX's explicit expert parallelism
+(``_moe_forward_shard_map``): with the active rules carrying a device mesh
+(``pjit_rules.sharding_rules``) and DTensor inputs, each rank routes its
+data shard's tokens, runs its model rank's E/msize experts, and one
+all-reduce over ``model`` completes the tokens' outputs. With no mesh
+bound it takes the single-program path, as JAX does.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import Params, dtype_of, init_normal
+from .pjit_rules import P, current_rules, is_dtensor, placements
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Params:
@@ -54,6 +58,13 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Pa
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     c = int(np.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
     return max(8, int(np.ceil(c / 8)) * 8)  # pad to a multiple of 8, as JAX
+
+
+def _replicated(idx: torch.Tensor) -> torch.Tensor:
+    """``idx`` as a plain tensor: a DTensor's whole value (gathered, as
+    every rank needs the whole dispatch plan, which DTensor cannot shard);
+    a plain tensor itself."""
+    return idx.full_tensor() if is_dtensor(idx) else idx
 
 
 def _dispatch_plan(top_idx: torch.Tensor, e: int, cap: int) -> torch.Tensor:
@@ -90,13 +101,17 @@ def _dispatch(xf, top_idx, top_w, e, cap):
     indexing: it would wait for the device)."""
     t, d = xf.shape
     k = top_idx.shape[1]
-    dest = _dispatch_plan(top_idx, e, cap)
+    dest = _dispatch_plan(_replicated(top_idx), e, cap)
     flat_token = torch.arange(t, dtype=torch.int32, device=xf.device).repeat_interleave(k)
     slot_token = torch.full((e * cap + 1,), t, dtype=torch.int32, device=xf.device)
     slot_token[dest] = flat_token
-    slot_w = torch.zeros((e * cap + 1,), dtype=torch.float32, device=xf.device)
-    slot_w[dest] = top_w.reshape(-1).float()
-    slot_token, slot_w = slot_token[:-1], slot_w[:-1]
+    # each slot's (token, choice) pair, t·k for an empty slot: the weights
+    # are gathered (differentiable, and a DTensor's gather needs no scatter)
+    slot_pair = torch.full((e * cap + 1,), t * k, dtype=torch.long, device=xf.device)
+    slot_pair[dest] = torch.arange(t * k, device=xf.device)
+    w = top_w.reshape(-1).float()
+    slot_w = torch.cat([w, w.new_zeros((1,))])[slot_pair[:-1]]
+    slot_token = slot_token[:-1]
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xe = xpad[slot_token.long()].reshape(e, cap, d)
     return xe, slot_token, slot_w, dest
@@ -133,13 +148,30 @@ def _route(
     # the mean over tokens of each expert's one-hot count; summed from exact
     # integer counts (one_hot would wait for the device to check the ids)
     ones = torch.ones(top_idx.numel(), dtype=torch.float32, device=xf.device)
-    ce = probs.new_zeros(e).index_add_(0, top_idx.reshape(-1), ones) / xf.shape[0]
+    ce = torch.zeros(e, dtype=torch.float32, device=xf.device).index_add_(
+        0, _replicated(top_idx).reshape(-1), ones) / xf.shape[0]
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef
     return top_idx, top_w, aux
 
 
+def _combine(ye_flat: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Each token's sum of its K slots' rows of ``ye_flat`` (N, D), in the
+    order of ``slots`` (T, K); a slot N (dropped, or not held here) adds
+    zeros."""
+    ye_pad = torch.cat([ye_flat, ye_flat.new_zeros((1, ye_flat.shape[1]))], dim=0)
+    out = ye_pad[slots[:, 0]]
+    for j in range(1, slots.shape[1]):
+        out = out + ye_pad[slots[:, j]]
+    return out
+
+
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss f32 scalar)."""
+    if cfg.moe_impl == "shard_map":
+        rules = current_rules()
+        if rules is not None and rules.get("_mesh") is not None:
+            return _moe_forward_shard_map(p, x, cfg, rules)
+
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -148,10 +180,103 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Ten
     top_idx, top_w, aux = _route(p, xf, cfg)
     xe, _, slot_w, dest = _dispatch(xf, top_idx, top_w, e, cap)
     ye = _expert_mlp(p, xe, cfg)                                        # (E, C, D)
-    ye_flat = ye.reshape(e * cap, d) * slot_w[:, None].to(ye.dtype)
-    ye_pad = torch.cat([ye_flat, ye_flat.new_zeros((1, d))], dim=0)     # row E·C: dropped
+    ye_flat = ye.reshape(e * cap, d) * slot_w[:, None].to(ye.dtype)     # slot E·C: dropped
     slots = torch.sort(dest.view(t, k), dim=1).values                   # JAX's visit order
-    out = ye_pad[slots[:, 0]]
-    for j in range(1, k):
-        out = out + ye_pad[slots[:, j]]
-    return out.reshape(b, s, d).to(x.dtype), aux.float()
+    return _combine(ye_flat, slots).reshape(b, s, d).to(x.dtype), aux.float()
+
+
+class _PSum(torch.autograd.Function):
+    """JAX's ``psum`` inside the shard map: the sum of the tensor over the
+    ranks of ``group``. The sum is one value, replicated over the group and
+    counted once downstream (DTensor's semantics), so each rank's share of
+    it gets the sum's whole gradient: the backward is the identity (an
+    all-reduce there, as ``torch.distributed.nn``'s, would count it once
+    per rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_forward_shard_map(p: Params, x, cfg: ModelConfig, rules) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert-parallel MoE, JAX's shard map over (batch = data,
+    expert = model) on DTensors.
+
+    x is sharded over the data axes and replicated over ``model``, so each
+    model rank already holds its data shard's tokens: it routes them (with
+    the Switch statistics ``me`` and ``ce`` averaged over the data axes
+    before their product), slices ITS experts' capacity buffers, runs its
+    E/msize experts, combines their outputs locally, and one all-reduce
+    over ``model`` completes the tokens' outputs. Each input's gradient is
+    a sum of the ranks' shares (``to_local``'s ``grad_placements``): the
+    tokens' over ``model``, the router's over every axis, the experts'
+    over the data axes. The aux loss is the same on every rank, so only
+    model rank 0 lets its gradient into the router's share. Capacity is
+    taken over the local tokens, as in JAX."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = rules["_mesh"]
+    dp = rules.get("batch") or ("data",)
+    dp = (dp,) if isinstance(dp, str) else tuple(dp)
+    names = mesh.mesh_dim_names
+    mdim = names.index("model")
+    msize = mesh.size(mdim)
+    e, k = cfg.n_experts, cfg.top_k
+    assert e % msize == 0, (e, msize)
+    assert isinstance(x, DTensor), "the shard-map MoE takes DTensors (launch.sharding)"
+
+    def local(t, spec, summed):
+        """This rank's block of ``t`` under ``spec``; its gradient is a
+        share summed over the mesh axes ``summed``."""
+        pl = placements(spec, mesh)
+        grad = [Partial() if names[i] in summed else q for i, q in enumerate(pl)]
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    x_spec = P(dp, None, None)
+    xb = local(x, x_spec, ("model",))
+    router = local(p["router"], P(None, None), names)
+    experts = {n: local(p[n], P("model", None, None), dp)
+               for n in ("w_up", "w_gate", "w_down") if n in p}
+
+    b_loc, s, d = xb.shape
+    t_loc = b_loc * s
+    xf = xb.reshape(t_loc, d)
+    probs = torch.softmax((xf @ router).float(), dim=-1)                # (T_loc, E)
+    top_vals, top_idx = torch.topk(probs, k, dim=-1)
+    top_w = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+    # routing statistics are averaged over the data shards BEFORE the me·ce
+    # product (the mean of per-shard products is not the Switch loss)
+    m_rank = mesh.get_local_rank(mdim)
+    me = torch.mean(probs if m_rank == 0 else probs.detach(), dim=0)
+    ones = torch.ones(top_idx.numel(), dtype=torch.float32, device=xf.device)
+    ce = probs.new_zeros(e).index_add_(0, top_idx.reshape(-1), ones) / t_loc
+    for axis in dp:
+        group = mesh.get_group(names.index(axis))
+        me = _PSum.apply(me, group) / dist.get_world_size(group)
+        ce = _PSum.apply(ce.detach(), group) / dist.get_world_size(group)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_coef
+
+    cap = expert_capacity(cfg, t_loc)
+    e_loc = e // msize
+    lo, hi = m_rank * e_loc * cap, (m_rank + 1) * e_loc * cap
+    xe, _, slot_w, dest = _dispatch(xf, top_idx, top_w, e, cap)
+    yr = _expert_mlp(experts, xe[m_rank * e_loc:(m_rank + 1) * e_loc], cfg)   # (E_loc, C, D)
+    yr_flat = yr.reshape(e_loc * cap, d) * slot_w[lo:hi, None].to(yr.dtype)
+    slots = torch.sort(dest.view(t_loc, k), dim=1).values
+    mine = torch.where((slots >= lo) & (slots < hi), slots - lo, torch.full_like(slots, hi - lo))
+    partial = _combine(yr_flat, mine)
+    # each rank contributed its experts; one all-reduce over model
+    out = _PSum.apply(partial, mesh.get_group(mdim))
+    out = DTensor.from_local(out.reshape(b_loc, s, d).to(xb.dtype), mesh,
+                             placements(x_spec, mesh), run_check=False)
+    aux = DTensor.from_local(aux.float(), mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return out, aux

@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules (``repro.models.pjit_rules``), and the
-port's partition-spec type ``P``.
+"""Logical-axis sharding rules (``repro.models.pjit_rules``), the port's
+partition-spec type ``P``, and its translation to DTensor placements.
 
 The launcher binds logical axis names (``batch``, ``seq``, ``heads``, ...)
 to mesh axes for the architecture at hand; ``sharding_rules`` makes a
@@ -9,15 +9,25 @@ architectures have head counts (14, 28, 24) that do not divide the 16-way
 their attention weights replicate and attention runs context-parallel
 (``seq`` over ``model``) while the MLP and embeddings stay tensor-parallel.
 
-Applying a binding to a tensor needs a device mesh, which is not ported
-yet; JAX's ``constrain`` comes with it.
+Model code annotates activations with ``constrain(x, "batch", "seq",
+"heads", None)``. A binding applies to tensors only when it carries the
+device mesh under ``"_mesh"`` (as JAX's dry-run binds it) and the tensor is
+a ``DTensor``: then ``constrain`` redistributes it to the binding's
+placements (JAX's ``with_sharding_constraint``); otherwise it returns the
+tensor itself, so the one-device paths are untouched. ``sharding_rules``
+with a mesh also lets plain tensors mix with DTensors as replicated values
+(``implicit_replication``): the model builds positions and masks as plain
+tensors, the same on every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+import math
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+import torch
 
 Axis = Union[str, Tuple[str, ...], None]
 
@@ -80,13 +90,119 @@ _RULES: contextvars.ContextVar[Optional[Dict[str, Axis]]] = contextvars.ContextV
 def sharding_rules(rules: Optional[Dict[str, Axis]]):
     token = _RULES.set(rules)
     try:
-        yield
+        if rules is not None and rules.get("_mesh") is not None:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _RULES.reset(token)
 
 
 def current_rules() -> Optional[Dict[str, Axis]]:
     return _RULES.get()
+
+
+def _axes(part: Any) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    return () if part is None else (part,) if isinstance(part, str) else tuple(part)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a ``DTensor`` (without importing DTensor's module
+    on the one-device paths)."""
+    return hasattr(x, "device_mesh")
+
+
+def placements(spec: P, mesh) -> List[Any]:
+    """DTensor placements of ``spec`` on a ``DeviceMesh`` with named dims:
+    per mesh dim, ``Shard(d)`` where tensor dim d names it and
+    ``Replicate()`` elsewhere. A tuple entry such as ``("pod", "data")``
+    shards its dim over each of those mesh dims, the first name the major
+    one, so its names must come in the mesh's order (DTensor's order); a
+    spec that names a mesh axis twice raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out: List[Any] = [Replicate()] * mesh.ndim
+    for d, part in enumerate(spec):
+        axes = _axes(part)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: axes {axes} out of the mesh's order {names}")
+        for m in dims:
+            if isinstance(out[m], Shard):
+                raise ValueError(f"{spec} names mesh axis {names[m]!r} twice")
+            out[m] = Shard(d)
+    return out
+
+
+def _divides(spec: P, shape: torch.Size, mesh) -> bool:
+    names = mesh.mesh_dim_names
+    return all(n % math.prod(mesh.size(names.index(a)) for a in _axes(part)) == 0
+               for part, n in zip(spec, shape))
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor:
+    """``x`` with dim ``dim`` split into ``sizes``. DTensor shards a split
+    dim's outer part only, so a DTensor sharded on ``dim`` over a mesh dim
+    that does not divide ``sizes[0]`` is first gathered on it there
+    (GSPMD reshards such a split by itself)."""
+    dim %= x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = x.device_mesh
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == dim and sizes[0] % mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:]))
+
+
+class _Flatten(torch.autograd.Function):
+    """A merge of dims whose backward splits the gradient by ``unflatten``
+    (DTensor's own backward of the merge cannot split a dim it shards
+    unevenly)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sizes, shape):
+        ctx.dim, ctx.sizes = dim, sizes
+        return x.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, ctx.dim, ctx.sizes), None, None, None
+
+
+def flatten(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with its dims ``dim .. dim + n - 1`` merged into one."""
+    sizes = tuple(x.shape[dim:dim + n])
+    shape = tuple(x.shape[:dim]) + (math.prod(sizes),) + tuple(x.shape[dim + n:])
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    return _Flatten.apply(x, dim, sizes, shape)
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to the placements the active rules
+    give its logical axes (JAX's ``with_sharding_constraint``). No-op
+    without active rules, without a mesh in them, on a tensor that is not a
+    DTensor, on rank mismatch, and where a mesh axis would not divide its
+    dim (DTensor shards such a dim unevenly, and views of it then fail;
+    JAX pads instead)."""
+    rules = _RULES.get()
+    if rules is None or rules.get("_mesh") is None:
+        return x
+    if not is_dtensor(x) or len(logical) != x.ndim:
+        return x
+    mesh = rules["_mesh"]
+    spec = P(*(rules.get(name) if name else None for name in logical))
+    if not _divides(spec, x.shape, mesh):
+        return x
+    return x.redistribute(mesh, placements(spec, mesh))
 
 
 def rules_for(cfg, multi_pod: bool, model_size: int = 16,

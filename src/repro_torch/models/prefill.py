@@ -146,7 +146,7 @@ def prefill(
     if true_len is not None:
         seq_valid = idx[None, :] < true_len[:, None]
     if positions is None:
-        positions = default_positions(cfg, b, s, dev)
+        positions = default_positions(cfg, tokens)
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     sw = cfg.sliding_window or 8192
     ring = cfg.attn_variant == "sliding_window"

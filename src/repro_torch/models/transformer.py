@@ -57,6 +57,7 @@ from .layers import (
     unembed,
 )
 from .moe import init_moe, moe_forward
+from .pjit_rules import constrain
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 
@@ -171,16 +172,26 @@ def pair_windows(cfg: ModelConfig) -> Tuple[int, int]:
     return sw, sw
 
 
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's sharding: over the sequence when an 'act_seq'
+    rule is bound (Megatron-style sequence parallelism), else over the
+    batch. Each sublayer's output takes it too, before it is added: GSPMD
+    reduces a row-parallel sum there by itself, DTensor keeps it partial."""
+    return constrain(x, "batch", "act_seq", None)
+
+
 def _dense_block_full(
     bp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     window: int, seq_valid: Optional[torch.Tensor],
 ) -> torch.Tensor:
+    x = _residual(x)
     h = attention_forward(
         bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
         window=window, seq_valid=seq_valid,
     )
-    x = x + h
-    return x + mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    x = x + _residual(h)
+    h = mlp_forward(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return _residual(x + _residual(h))
 
 
 def _moe_block_full(
@@ -188,21 +199,23 @@ def _moe_block_full(
     window: int, seq_valid: Optional[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE layer: returns (x, this layer's aux loss)."""
+    x = _residual(x)
     h = attention_forward(
         bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps), positions, cfg,
         window=window, seq_valid=seq_valid,
     )
-    x = x + h
+    x = x + _residual(h)
     m, aux = moe_forward(bp["moe"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
-    return x + m, aux
+    return _residual(x + _residual(m)), aux
 
 
 def _mamba_block_full(
     bp: Params, x: torch.Tensor, cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One mamba layer: returns (x, final SSM state, conv state)."""
+    x = _residual(x)
     out, final, conv_state = ssm_forward(bp["ssm"], rms_norm(x, bp["norm"], cfg.norm_eps), cfg)
-    return x + out, final, conv_state
+    return _residual(x + _residual(out)), final, conv_state
 
 
 def _zamba_group_full(
@@ -255,9 +268,14 @@ def embed_inputs(
     return x
 
 
-def default_positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
-    """Positions 0..S-1 per lane (B, S), broadcast to (3, B, S) for mrope."""
-    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+def default_positions(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Positions 0..S-1 per lane (B, S), broadcast to (3, B, S) for mrope:
+    a tensor like the tokens' lanes, so on a mesh it is sharded as they are
+    (DTensor does not propagate a sharding into a fresh tensor, as GSPMD
+    does)."""
+    lanes = tokens[:, :, 0] if tokens.ndim == 3 else tokens
+    pos = torch.zeros_like(lanes, dtype=torch.int32) + torch.arange(
+        lanes.shape[1], dtype=torch.int32, device=lanes.device)
     return text_positions(cfg, pos)
 
 
@@ -279,9 +297,8 @@ def forward_full(
     ``cfg.remat`` (the default, as in JAX) each block — a layer, a gemma
     pair, a zamba group with its shared attention — is recomputed in the
     backward (``_remat``); the values are the same either way."""
-    b, s = tokens.shape[:2]
     if positions is None:
-        positions = default_positions(cfg, b, s, tokens.device)
+        positions = default_positions(cfg, tokens)
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for spec, gp in zip(layer_groups(cfg), params["groups"]):

@@ -1,3 +1,3 @@
-from .analysis import RooflineResult, model_flops
+from .analysis import RooflineResult, collective_bytes_by_type, model_flops
 
-__all__ = ["RooflineResult", "model_flops"]
+__all__ = ["RooflineResult", "collective_bytes_by_type", "model_flops"]

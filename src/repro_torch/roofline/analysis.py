@@ -8,9 +8,12 @@ Three terms per (arch x shape x mesh), in seconds, per device:
     collective = collective_bytes / 25 GB/s (one NVLink 4 link, one way)
 
 ``hlo_flops`` is a counted step's FLOPs per device (the port counts them
-with ``launch.dryrun.step_flops``; the field keeps JAX's name), and
-``hlo_bytes`` / ``collective_bytes`` its bytes moved and its collectives'
-bytes. MODEL_FLOPS uses 6·N·D (train) or 2·N·D (forward) with N = total
+with ``launch.dryrun``; the field keeps JAX's name), and ``hlo_bytes`` /
+``collective_bytes`` its bytes moved and its collectives' bytes.
+``collective_bytes_by_type`` sums the collectives one device ran under
+JAX's five HLO names: the result bytes of each (JAX's convention: an
+upper bound for reduce-scatter, exact for all-gather and permute receive
+volume) and a ``<name>_count`` of each. MODEL_FLOPS uses 6·N·D (train) or 2·N·D (forward) with N = total
 params (dense) / active params (MoE); the ratio MODEL_FLOPS / FLOPs
 exposes remat recompute, attention's quadratic work and dispatch
 overhead.
@@ -19,10 +22,29 @@ overhead.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 from ..launch.mesh import HBM_BW, ICI_BW_PER_LINK, PEAK_FLOPS_BF16
 from ..models.config import ModelConfig
+
+
+_COLLECTIVES = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
+
+
+def collective_bytes_by_type(ops: Iterable[Tuple[str, int]]) -> Dict[str, int]:
+    """``ops``: (collective name, result bytes) per collective run, as
+    ``launch.dryrun._LocalCost`` records them (JAX parses them from the
+    partitioned HLO text)."""
+    out: Dict[str, int] = {c: 0 for c in _COLLECTIVES}
+    counts: Dict[str, int] = {c + "_count": 0 for c in _COLLECTIVES}
+    for op, nbytes in ops:
+        out[op] += nbytes
+        counts[op + "_count"] += 1
+    out.update(counts)
+    return out
 
 
 @dataclass

@@ -19,6 +19,7 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
+from ..models.pjit_rules import is_dtensor
 from ..models.weights import tree_leaves, tree_map
 
 
@@ -98,6 +99,11 @@ def adamw_update(
     p32 = [x.to(torch.float32) for x in p]
     torch._foreach_add_(delta, torch._foreach_mul(p32, cfg.weight_decay))
     torch._foreach_mul_(delta, lr)                      # p - lr·delta, rounded to p's dtype
-    torch._foreach_copy_(p, torch._foreach_sub(p32, delta))
+    new = torch._foreach_sub(p32, delta)
+    if is_dtensor(p[0]):   # DTensors: no sharding rule for _foreach_copy_
+        for x, y in zip(p, new):
+            x.copy_(y)
+    else:
+        torch._foreach_copy_(p, new)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics

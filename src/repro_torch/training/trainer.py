@@ -8,10 +8,11 @@ refuse a kernel config (``_require_reference``). Remat is
 ``cfg.remat`` in ``models.transformer.forward_full``. Gradient
 accumulation is a loop over microbatches (cfg.grad_accum) in place of
 JAX's ``lax.scan``. ``grad_specs`` (JAX's sharding constraint on the
-gradients, a partition-spec tree) needs a device mesh, which is not ported
-yet: ``None`` changes nothing, and a spec tree raises, as JAX's
-``with_sharding_constraint`` does with no mesh in context. A batch is
-a dict of tensors on the params' device: ``tokens`` and ``labels``, and
+gradients, a partition-spec tree) redistributes the gradients of DTensor
+parameters to the specs' placements on the mesh of the active rules
+(``pjit_rules.sharding_rules`` with ``"_mesh"``); with no mesh bound a spec
+tree raises, as JAX's ``with_sharding_constraint`` does. A batch is a dict
+of tensors on the params' device: ``tokens`` and ``labels``, and
 optionally ``mask``, ``positions`` and ``patch_embeds``.
 """
 
@@ -22,10 +23,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models import ModelConfig, forward_full
+from ..models.pjit_rules import current_rules, is_dtensor, placements
 from ..models.weights import tree_leaves, tree_map
 from .optimizer import OptConfig, adamw_update
 
 Batch = Dict[str, torch.Tensor]
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim. On a DTensor it is spelt as a max
+    and a sum, which DTensor reduces over a sharded vocab as partials (its
+    ``logsumexp`` gathers the whole vocab first)."""
+    if not is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    m = torch.amax(x.detach(), dim=-1, keepdim=True)
+    return torch.log(torch.sum(torch.exp(x - m), dim=-1)) + m[..., 0]
 
 
 def cross_entropy(
@@ -35,13 +47,17 @@ def cross_entropy(
     impl: str = "gather",
 ) -> torch.Tensor:
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _logsumexp(logits)
     if impl == "onehot":
         onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
         gold = torch.sum(logits * onehot, dim=-1)
+        nll = logz - gold
     else:
-        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+        # the gold logit keeps its vocab dim until the subtraction: on
+        # vocab-sharded DTensor logits the gather is a masked partial sum,
+        # whose mask has the gather's shape
+        gold = torch.gather(logits, -1, labels.long()[..., None])
+        nll = (logz[..., None] - gold)[..., 0]
     if nll.ndim == 3:   # audio codebooks: average over K
         nll = torch.mean(nll, dim=-1)
     if mask is None:
@@ -78,7 +94,17 @@ def loss_fn(
 def _split_microbatches(batch: Batch, n: int) -> Batch:
     def rs(x):
         if x.ndim >= 1 and x.shape[0] % n == 0:
-            return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+            shape = (n, x.shape[0] // n) + tuple(x.shape[1:])
+            if not is_dtensor(x):
+                return x.reshape(shape)
+            # DTensor cannot cut a sharded dim in two: gather the batch, then
+            # shard each microbatch as the batch was
+            from torch.distributed.tensor import Replicate, Shard
+
+            mesh = x.device_mesh
+            y = x.redistribute(mesh, [Replicate()] * mesh.ndim).reshape(shape)
+            return y.redistribute(mesh, [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                                         for p in x.placements])
         return x.expand((n,) + tuple(x.shape))  # e.g. (3,B,S) positions
 
     return {k: rs(v) for k, v in batch.items() if v is not None}
@@ -99,30 +125,52 @@ def _value_and_grad(params: Any, cfg: ModelConfig, batch: Batch):
             tree_map(lambda _: next(it), params))
 
 
+def _constrainer(grad_specs: Any):
+    """JAX's ``cst``: the identity without specs, else a function that
+    redistributes a gradient tree to ``grad_specs`` (stacked or per-layer)
+    on the active rules' mesh."""
+    if grad_specs is None:
+        return lambda tree: tree
+    rules = current_rules()
+    mesh = None if rules is None else rules.get("_mesh")
+    if mesh is None:
+        raise RuntimeError(
+            "grad_specs constrains the gradients' sharding and requires a device mesh in "
+            "context: bind one with sharding_rules({..., '_mesh': mesh})")
+    from ..launch.sharding import layer_specs
+
+    def cst(tree):
+        return tree_map(lambda g, s: g.redistribute(mesh, placements(s, mesh)),
+                        tree, layer_specs(tree, grad_specs))
+
+    return cst
+
+
 def grads_fn(params: Any, cfg: ModelConfig, batch: Batch, grad_specs: Any = None):
     """Value-and-grad with optional microbatch accumulation (mean over
     microbatches): returns (loss, metrics, grads), grads in the params'
     structure. With ``cfg.grad_accum`` > 1 the gradients are summed in f32
     (``acc + g / n``, JAX's order) and the metrics are JAX's ``{"ce":
-    loss, "aux": 0}``. ``grad_specs`` would pin the gradients' sharding on
-    a mesh: ``None`` is a no-op, anything else raises ``RuntimeError``
-    (no mesh is bound)."""
-    if grad_specs is not None:
-        raise RuntimeError(
-            "grad_specs constrains the gradients' sharding and requires a device mesh in "
-            "context; none is bound (the device mesh is not ported yet)")
+    loss, "aux": 0}``. ``grad_specs`` pins each microbatch's gradients and
+    the f32 accumulator to the parameters' sharding on the bound mesh (so
+    FSDP-sharded parameters get gradients reduce-scattered into their
+    shards); ``None`` is a no-op, and specs with no mesh bound raise
+    ``RuntimeError``."""
+    cst = _constrainer(grad_specs)
     n = cfg.grad_accum
     if n <= 1:
-        return _value_and_grad(params, cfg, batch)
+        loss, metrics, grads = _value_and_grad(params, cfg, batch)
+        return loss, metrics, cst(grads)
 
     micro = _split_microbatches(batch, n)
-    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                     params)
+    grads = cst(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params))
     loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
     for i in range(n):
         mb_loss, _, g = _value_and_grad(params, cfg, {k: v[i] for k, v in micro.items()})
+        g = cst(g)
         torch._foreach_add_(tree_leaves(grads),
                             torch._foreach_div([x.to(torch.float32) for x in tree_leaves(g)], n))
+        grads = cst(grads)
         loss = loss + mb_loss / n
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}, grads
 

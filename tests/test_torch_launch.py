@@ -13,6 +13,7 @@ constants. Then the JAX package's own tests of these modules
 meta count is held to the count on real CPU tensors."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -321,12 +322,22 @@ def test_grad_specs_without_a_mesh_raise_as_in_jax():
 
 
 
-def test_train_dry_run_names_the_missing_half(capsys):
-    """``launch.train --dry-run`` still exits 2 and says that the launch's
-    execution half is what is missing."""
+def test_train_dry_run_names_the_missing_half(monkeypatch):
+    """``launch.train --dry-run`` no longer exits 2: the launch's execution
+    half is ported, and it runs the port's dry-run (``python -m
+    repro_torch.launch.dryrun ... --shape train_4k``) and exits with its
+    code."""
+    import subprocess
+    import sys
+
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit) as e:
-        train.main(["--arch", "qwen2-0.5b", "--dry-run", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "execution half" in capsys.readouterr().err
+    calls, codes = [], iter((0, 3))
+    monkeypatch.setattr(subprocess, "run", lambda cmd, env=None: calls.append(cmd) or
+                        types.SimpleNamespace(returncode=next(codes)))
+    for flags, code in (([], 0), (["--multi-pod"], 3)):
+        with pytest.raises(SystemExit) as e:
+            train.main(["--arch", "qwen2-0.5b", "--dry-run", *flags, "--device", "cpu"])
+        assert e.value.code == code
+        assert calls.pop() == [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               "qwen2-0.5b", "--shape", "train_4k", *flags, "--device", "cpu"]

@@ -52,7 +52,8 @@ _ISOLATED = textwrap.dedent(
                  "repro_torch.launch.shapes", "repro_torch.launch.sharding",
                  "repro_torch.launch.dryrun", "repro_torch.models.pjit_rules",
                  "repro_torch.core.mesh_context", "repro_torch.roofline",
-                 "repro_torch.roofline.analysis"):
+                 "repro_torch.roofline.analysis", "repro_torch.models.attention",
+                 "repro_torch.models.transformer"):
         assert must in names, must
     for n in names:
         importlib.import_module(n)
@@ -104,6 +105,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", GRANITE_MOE_3B_A800M.name, "--turns", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", PAPER_QWEN15_0_5B.name, "--steps", "1"])
+    # the mesh and the dry-run default to the card too, before any group
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", PAPER_QWEN15_0_5B.name, "--shape", "train_4k"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", PAPER_QWEN15_0_5B.name, "--dry-run"])
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
     for arch in (CHATGLM3_6B, QWEN2_VL_7B, GEMMA2_27B):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", arch.name, "--turns", "1"])

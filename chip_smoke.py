@@ -241,9 +241,19 @@ non-zero):
                at full width in f32 through the shard-map MoE on that mesh
                against the gspmd path; (c) ``python -m
                repro_torch.launch.dryrun --arch paper-qwen1.5-0.5b --shape
-               train_4k --device cuda`` as a subprocess (started first, it
-               runs beside (a) and (b)): its argument bytes per device
-               equal the specs' arithmetic, the rest printed with no bound
+               train_4k decode_32k long_500k --device cuda`` as a
+               subprocess (started first, it runs beside (a), (b) and (d)):
+               every record ok, its argument bytes per device equal the
+               specs' arithmetic, each record's collectives printed with
+               no bound; (d) serving on that mesh: the full-width paper
+               model in f32, a 1024-token prefill and 16 greedy decode
+               steps with parameters and caches as DTensors against the
+               plain path on the same weights and tokens, at B = 2 (batch
+               over data, KV heads over model) and at B = 1 with the
+               sliding-window variant (slots over data: the split
+               softmax; a 512-slot ring that wraps), logits within
+               MESH_SERVE_REL x the plain logits' std, the greedy tokens
+               identical, every cache leaf in ``cache_specs``' placements
                (``{"mesh_path": ...}``);
 28. result  — JSON lines with every kernel's numbers (K1-K6; launches
                also count phases 23-24), the card's name and power limit,
@@ -4274,14 +4284,38 @@ MESH_MOE_REL = 1e-5   # shard map vs gspmd on a 1 x 1 mesh, f32: the same
                       # 1e-5 x the gspmd output's max
 
 
+MESH_SERVE_TOKENS, MESH_SERVE_STEPS = 1024, 16
+MESH_SERVE_WINDOW = 512   # the sliding-window variant's ring in (d): wraps in the prefill
+MESH_SERVE_REL = 1e-4   # (d) DTensor vs plain logits on a 1 x 1 mesh, f32 (TF32 off):
+                        # max |diff| <= 1e-4 x the plain logits' std (the split
+                        # softmax and the vocab-parallel lookup reorder f32 sums)
+
+
 def _mesh_dry_run_bytes(cfg, shape) -> int:
     """The dry-run's argument bytes per device on 16 x 16 by the specs'
-    arithmetic (``_launch_config``): parameters under ``param_specs``, the
-    two f32 moments under ZeRO-1 and the int32 step, int32 tokens and
-    labels over ``data``."""
+    arithmetic (``_launch_config``): parameters under ``param_specs``; for
+    train the two f32 moments under ZeRO-1, the int32 step, int32 tokens
+    and labels over ``data``; for decode the caches under ``cache_specs``
+    (slots over ``data`` for B = 1), the int32 tokens and positions."""
+    import torch
+    from repro_torch.launch.shapes import arch_for_shape, decode_cache_abstract
+    from repro_torch.launch.sharding import cache_specs
+    from repro_torch.models.weights import tree_leaves
+
+    mesh = LAUNCH_MESHES["16x16"]
+    cfg = arch_for_shape(cfg, shape)
     per = _launch_config(cfg)["bytes_per_device"]
-    batch = 2 * shape.global_batch * shape.seq_len * 4 // LAUNCH_MESHES["16x16"]["data"]
-    return per["params_tp_16x16"] + per["opt_zero1_16x16"] + 4 + batch
+    if shape.kind == "train":
+        batch = 2 * shape.global_batch * shape.seq_len * 4 // mesh["data"]
+        return per["params_tp_16x16"] + per["opt_zero1_16x16"] + 4 + batch
+    assert shape.kind == "decode", shape
+    seq_shard = shape.global_batch == 1
+    caches = decode_cache_abstract(cfg, shape)
+    specs = tree_leaves(cache_specs(cfg, caches, False, seq_shard=seq_shard))
+    cache_bytes = sum(t.numel() * t.element_size() // _shards(s, t.shape, mesh, shape.name)
+                      for t, s in zip(tree_leaves(caches), specs))
+    lanes = shape.global_batch // (1 if seq_shard else mesh["data"])
+    return per["params_tp_16x16"] + cache_bytes + 2 * lanes * torch.int32.itemsize
 
 
 def _mesh_train(dev, mesh, card: str) -> dict:
@@ -4365,11 +4399,103 @@ def _mesh_moe(dev, mesh) -> dict:
     return out
 
 
+def _mesh_greedy(params, cfg, toks, mesh=None):
+    """A MESH_SERVE_TOKENS-token prefill and MESH_SERVE_STEPS greedy decode
+    steps; with ``mesh``, parameters placed by ``param_specs``, tokens over
+    the batch (replicated for one sequence), the caches as ``prefill``
+    returns them, under ``rules_for(..., kind=...)``. Returns (the logits of
+    every step (steps + 1, B, V), the caches, seconds)."""
+    import torch
+    from repro_torch.launch.sharding import distribute_tree, param_specs
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.pjit_rules import P, rules_for, sharding_rules
+
+    t0 = time.perf_counter()
+    seq = toks.shape[0] == 1
+    tok_spec, lanes = (P(None, None), P(None)) if seq else (P("data", None), P("data"))
+
+    def rules(kind):
+        if mesh is None:
+            return contextlib.nullcontext()
+        return sharding_rules(dict(rules_for(cfg, False, model_size=1, kind=kind), _mesh=mesh))
+
+    def place(t, spec):
+        return t if mesh is None else distribute_tree(t, spec, mesh)
+
+    def full(t):
+        return t if mesh is None else t.full_tensor()
+
+    with torch.no_grad():
+        if mesh is not None:
+            params = distribute_tree(params, param_specs(cfg, params, model_size=1), mesh)
+        with rules("prefill"):
+            logits, caches, pos = prefill(params, cfg, place(toks, tok_spec),
+                                          MESH_SERVE_TOKENS + MESH_SERVE_STEPS)
+        steps = [full(logits)]
+        for _ in range(MESH_SERVE_STEPS):
+            with rules("decode"):
+                logits, caches = decode_step(params, cfg, caches,
+                                             place(steps[-1].argmax(-1)[:, None], tok_spec),
+                                             place(pos, lanes))
+            steps.append(full(logits)[:, 0])
+            pos = pos + 1
+    torch.cuda.synchronize()
+    return torch.stack(steps), caches, time.perf_counter() - t0
+
+
+def _mesh_serve(dev, mesh) -> dict:
+    """(d) The paper model served on the 1 x 1 mesh vs the plain path, f32
+    (TF32 off), on the same weights and tokens (``_mesh_greedy``): at B = 2
+    (batch over data, KV heads over model) and at B = 1 with the
+    sliding-window variant (slots over data, so attention takes the split
+    softmax, on a ring that wraps in the prefill)."""
+    import torch
+    from repro_torch.configs import PAPER_QWEN15_0_5B
+    from repro_torch.launch.sharding import cache_specs
+    from repro_torch.models import init_params
+    from repro_torch.models.pjit_rules import placements
+    from repro_torch.models.weights import tree_leaves
+
+    base = PAPER_QWEN15_0_5B.replace(param_dtype="float32", compute_dtype="float32")
+    params = init_params(base, seed=0, device=dev)
+    ring = base.replace(attn_variant="sliding_window", sliding_window=MESH_SERVE_WINDOW)
+    out = {}
+    for name, cfg, b in (("batch", base, 2), ("seq_shard_ring", ring, 1)):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (b, MESH_SERVE_TOKENS), generator=gen,
+                             device=dev)
+        want, _, plain_s = _mesh_greedy(params, cfg, toks)
+        got, caches, mesh_s = _mesh_greedy(params, cfg, toks, mesh)
+        std = want.std().item()
+        rel = (got - want).abs().max().item() / std
+        tokens_equal = torch.equal(want.argmax(-1), got.argmax(-1))
+        specs = cache_specs(cfg, caches, False, model_size=1, seq_shard=b == 1)
+        got_pl = [tuple(t.placements) for t in tree_leaves(caches)]
+        want_pl = [tuple(placements(s, mesh)) for s in tree_leaves(specs)]
+        out[name] = {"batch": b, "tokens": MESH_SERVE_TOKENS, "steps": MESH_SERVE_STEPS,
+                     "attn_variant": cfg.attn_variant, "logit_rel": rel, "logit_std": std,
+                     "tokens_equal": tokens_equal, "placements": [str(g) for g in got_pl],
+                     "plain_s": plain_s, "mesh_s": mesh_s}
+        log(f"mesh serve {name}: paper model f32 B {b}, {MESH_SERVE_TOKENS}-token prefill + "
+            f"{MESH_SERVE_STEPS} greedy steps ({cfg.attn_variant}) on the 1 x 1 mesh: max "
+            f"|diff| {rel:.2e} x std {std:.3f} (bound {MESH_SERVE_REL}), greedy tokens "
+            f"{'identical' if tokens_equal else 'DIFFER'}, cache placements "
+            f"{'= cache_specs' if got_pl == want_pl else got_pl}; plain {plain_s:.2f} s, as "
+            f"DTensors {mesh_s:.2f} s")
+        assert rel <= MESH_SERVE_REL, (name, rel)
+        assert tokens_equal, name
+        assert got_pl == want_pl, (name, got_pl, want_pl)
+        del caches
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh(dev, card: str) -> dict:
     """The multi-device launch's execution half on the card: (c) the
-    dry-run started first in a subprocess, (a) ``_mesh_train`` and (b)
-    ``_mesh_moe`` on a one-rank NCCL group meanwhile; the group destroyed at
-    the end. The six counters stay 0."""
+    dry-run started first in a subprocess, (a) ``_mesh_train``, (b)
+    ``_mesh_moe`` and (d) ``_mesh_serve`` on a one-rank NCCL group
+    meanwhile; the group destroyed at the end. The six counters stay 0."""
     import os
     import tempfile
 
@@ -4384,10 +4510,11 @@ def phase_mesh(dev, card: str) -> dict:
     t_phase = time.perf_counter()
     out_dir = ROOT / "build" / "mesh_dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
-    record_path = out_dir / "paper_train_4k.json"
+    record_path = out_dir / "paper.json"
     record_path.unlink(missing_ok=True)
+    dry_shapes = ("train_4k", "decode_32k", "long_500k")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", PAPER_QWEN15_0_5B.name,
-           "--shape", "train_4k", "--device", dev.type, "--out", str(record_path)]
+           "--shape", *dry_shapes, "--device", dev.type, "--out", str(record_path)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     dry = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                            env=env, cwd=str(ROOT))
@@ -4398,7 +4525,7 @@ def phase_mesh(dev, card: str) -> dict:
             try:
                 mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
                 out = {"card": card, "train": _mesh_train(dev, mesh, card),
-                       "moe": _mesh_moe(dev, mesh)}
+                       "moe": _mesh_moe(dev, mesh), "serve": _mesh_serve(dev, mesh)}
             finally:
                 dist.destroy_process_group()
         dry_out, _ = dry.communicate(timeout=600)
@@ -4410,15 +4537,20 @@ def phase_mesh(dev, card: str) -> dict:
         if line.startswith(("==", "  ")) or "combos" in line:
             log(f"mesh dry-run: {line}")
     assert dry.returncode == 0, dry_out[-4000:]
-    rec = json.loads(record_path.read_text())[0]
-    want = _mesh_dry_run_bytes(PAPER_QWEN15_0_5B, SHAPES["train_4k"])
-    assert rec["argument_bytes_per_device"] == want, (rec["argument_bytes_per_device"], want)
-    assert rec["device_type"] == dev.type, rec
-    out["dry_run"] = {k: rec[k] for k in (
-        "device_type", "argument_bytes_per_device", "hlo_flops", "hlo_bytes", "collectives",
-        "collective_bytes", "comm_debug_count", "compute_s", "memory_s", "collective_s",
-        "dominant", "model_flops", "useful_flops_ratio", "step_s")}
-    out["dry_run"]["argument_bytes_spec_arithmetic"] = want
+    records = {r["shape"]: r for r in json.loads(record_path.read_text())}
+    assert sorted(records) == sorted(dry_shapes), sorted(records)
+    out["dry_run"] = {}
+    for shape, rec in records.items():
+        want = _mesh_dry_run_bytes(PAPER_QWEN15_0_5B, SHAPES[shape])
+        assert rec["status"] == "ok", rec
+        assert rec["argument_bytes_per_device"] == want, (shape, rec["argument_bytes_per_device"],
+                                                          want)
+        assert rec["device_type"] == dev.type, rec
+        out["dry_run"][shape] = {k: rec[k] for k in (
+            "device_type", "argument_bytes_per_device", "hlo_flops", "hlo_bytes", "collectives",
+            "collective_bytes", "comm_debug_count", "compute_s", "memory_s", "collective_s",
+            "dominant", "model_flops", "useful_flops_ratio", "step_s")}
+        out["dry_run"][shape]["argument_bytes_spec_arithmetic"] = want
     launches = {k: c.launches for k, c in counters.items()}
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase

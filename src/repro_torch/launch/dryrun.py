@@ -6,7 +6,8 @@ with the roofline terms.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k --device cpu --out dryrun.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k long_500k --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu --out dryrun.json
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
 
 The fake group (``torch.testing._internal.distributed.fake_pg``, backend
@@ -28,6 +29,11 @@ global operator), and the whole depth is counted as it runs (JAX probes
 two depths because XLA counts a loop body once). The counter sees PyTorch
 operators only, not the kernels' ``ctypes`` calls, so a kernel
 configuration is refused; the mesh path is the plain path, as JAX's.
+The serving steps run as they would on real ranks: ``prefill`` builds its
+caches on the shards in ``cache_specs``' placements, ``decode_step``
+writes each rank's shard of the caches and splits attention's softmax
+over a slot-sharded cache (``models.attention._sdpa_split``), so their
+collectives are the functional ones the counter sees.
 
 ``step_flops`` counts one step's FLOPs on one device, without a mesh.
 """
@@ -376,7 +382,8 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default=None, help="architecture id (see repro_torch.configs)")
-    ap.add_argument("--shape", default=None, choices=sorted(SHAPES))
+    ap.add_argument("--shape", default=None, nargs="+", choices=sorted(SHAPES),
+                    help="one or more shapes (default: all four)")
     ap.add_argument("--all", action="store_true",
                     help="all 11 configurations (JAX's 10 and the paper model) × the shapes")
     ap.add_argument("--multi-pod", action="store_true", help="2×16×16 mesh (512 devices)")
@@ -389,9 +396,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
     device_type = resolve_device(args.device).type
 
-    # unlike JAX's, --shape narrows --all to one shape
+    # unlike JAX's, --shape narrows --all to the shapes given
     archs = sorted(ALL) if (args.all or not args.arch) else [args.arch]
-    shapes = [args.shape] if args.shape else sorted(SHAPES)
+    shapes = args.shape or sorted(SHAPES)
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     records = []
@@ -407,6 +414,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 except Exception as e:  # noqa: BLE001 — record and continue
                     failures += 1
                     traceback.print_exc()
+                    print(f"FAIL {arch} × {shape} × {'2x16x16' if mp else '16x16'}: "
+                          f"{type(e).__name__}: {e}")
                     records.append({
                         "arch": arch, "shape": shape,
                         "mesh": "2x16x16" if mp else "16x16",

@@ -27,10 +27,17 @@ import torch
 
 from .config import ModelConfig
 from .layers import Params, apply_rope, dtype_of, init_normal, pos1d, softcap
-from .pjit_rules import constrain, flatten, is_dtensor, unflatten
+from .pjit_rules import (
+    all_reduce,
+    constrain,
+    flatten,
+    from_shards,
+    is_dtensor,
+    local_shard,
+    unflatten,
+)
 
 NEG_INF = -1e30
-
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> Params:
@@ -67,20 +74,6 @@ def qkv_project(
     return apply_rope(cfg, q, positions), apply_rope(cfg, k, positions), v
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous: a
-    DTensor built from a local gradient takes its strides as those of its
-    global shape, and a permuted einsum gradient would break later views."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: int):
     """``_sdpa_reference`` of DTensors, run on each rank's shards.
 
@@ -91,16 +84,30 @@ def _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: 
     KV heads of its query heads. Any other placement of q is gathered.
     Where K/V are whole but q is cut, each rank's share of their gradient
     is summed. Run as DTensor operators, the einsums' internal flattening
-    of two sharded dims is refused by some DTensor versions."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    of two sharded dims is refused by some DTensor versions.
+
+    A cache's K/V may have their slots sharded (a decode cache whose KV
+    heads do not divide the model axis, or a long sequence's slots over
+    data): there q is whole, each rank scores its own slots and the
+    softmax is split (``_sdpa_split``) rather than the cache gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
     h, kvh = q.shape[2], k.shape[2]
     g = h // kvh
+    split = [i for i, p in enumerate(k.placements)
+             if isinstance(p, Shard) and p.dim % k.ndim == 1] if is_dtensor(k) else []
     pq, pkv, ppos_q, ppos_kv, gkv = [], [], [], [], []
     kv_lo, kv_n = 0, kvh   # the local KV heads to take (all of a sharded K/V's)
     for i, p in enumerate(q.placements):
         size = mesh.size(i)
+        if i in split:
+            pq.append(Replicate())
+            pkv.append(Shard(1))
+            gkv.append(Shard(1))
+            ppos_q.append(Replicate())
+            ppos_kv.append(Shard(1))
+            continue
         if isinstance(p, Shard) and p.dim in (0, 1, 2) and q.shape[p.dim] % size == 0:
             pq.append(p)
         else:
@@ -119,15 +126,48 @@ def _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: 
             assert h_loc % g == 0 or g % h_loc == 0, (h, kvh, size)
             kv_lo, kv_n = (r * h_loc) // g, max(1, h_loc // g)
 
-    def local(t, pl, grad=None):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return _ContiguousGrad.apply(t.redistribute(mesh, pl).to_local(grad_placements=grad))
+    k_l, v_l = (local_shard(t, mesh, pkv, gkv)[:, :, kv_lo:kv_lo + kv_n] for t in (k, v))
+    args = (local_shard(q, mesh, pq), k_l, v_l, local_shard(q_pos, mesh, ppos_q),
+            local_shard(kv_pos, mesh, ppos_kv), local_shard(kv_valid, mesh, ppos_kv), cfg, window)
+    out = _sdpa_split(*args, mesh=mesh, dims=split) if split else _sdpa_reference(*args)
+    return from_shards(out, mesh, pq)
 
-    k_l, v_l = (local(t, pkv, gkv)[:, :, kv_lo:kv_lo + kv_n] for t in (k, v))
-    out = _sdpa_reference(local(q, pq), k_l, v_l, local(q_pos, ppos_q), local(kv_pos, ppos_kv),
-                          local(kv_valid, ppos_kv), cfg, window)
-    return DTensor.from_local(out.contiguous(), mesh, pq, run_check=False)
+
+def _masked_logits(q, k, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: int):
+    """Scaled, softcapped GQA logits (B,KV,G,S,T) in f32 with causality and
+    the window on positions; masked logits take NEG_INF (-1e30), never
+    -inf."""
+    h, dh = q.shape[2:]
+    kvh = k.shape[2]
+    q5 = q.reshape(q.shape[:2] + (kvh, h // kvh, dh))
+    scale = 1.0 / np.sqrt(dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", q5.float(), k.float()) * scale
+    logits = softcap(logits, cfg.attn_softcap)
+    causal = kv_pos[:, None, :] <= q_pos[:, :, None]            # (B,S,T)
+    mask = causal & kv_valid[:, None, :]
+    if window > 0:
+        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
+    return torch.where(mask[:, None, None], logits, torch.full_like(logits, NEG_INF))
+
+
+def _sdpa_split(q, k, v, q_pos, kv_pos, kv_valid, cfg: ModelConfig, window: int, *,
+                mesh, dims):
+    """``_sdpa_reference`` over keys whose slots are cut over the mesh dims
+    ``dims`` (each rank holds its slots of K/V/kv_pos and the whole q):
+    each rank's logits take the all-reduced MAX as the softmax's shift,
+    and its (acc, l) = (p @ v, sum p) are all-reduced by SUM, in f32.
+    Exact up to rounding, as GSPMD's partitioned softmax. A rank with no
+    valid slot has every logit at -1e30, so its p is exp(-1e30 - max) = 0
+    wherever any rank has a valid slot; where none has, every p is 1 and
+    the output is the mean of V, as the unsplit softmax gives."""
+    logits = _masked_logits(q, k, q_pos, kv_pos, kv_valid, cfg, window)
+    m = all_reduce(logits.amax(dim=-1, keepdim=True), "max", mesh, dims)
+    p = torch.exp(logits - m)
+    acc = torch.einsum("bkgst,btkd->bkgsd", p, v.float())
+    stats = all_reduce(torch.cat([acc, p.sum(dim=-1, keepdim=True)], dim=-1), "sum", mesh,
+                       dims)
+    out = stats[..., :-1] / stats[..., -1:]                     # (B,KV,G,S,Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
 
 
 def _sdpa_reference(
@@ -145,18 +185,7 @@ def _sdpa_reference(
     (``_sdpa_on_shards``)."""
     if is_dtensor(q):
         return _sdpa_on_shards(q, k, v, q_pos, kv_pos, kv_valid, cfg, window)
-    h, dh = q.shape[2:]
-    kvh = k.shape[2]
-    g = h // kvh
-    q5 = q.reshape(q.shape[:2] + (kvh, g, dh))
-    scale = 1.0 / np.sqrt(dh)
-    logits = torch.einsum("bskgd,btkd->bkgst", q5.float(), k.float()) * scale
-    logits = softcap(logits, cfg.attn_softcap)
-    causal = kv_pos[:, None, :] <= q_pos[:, :, None]            # (B,S,T)
-    mask = causal & kv_valid[:, None, :]
-    if window > 0:
-        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
-    logits = torch.where(mask[:, None, None], logits, torch.full_like(logits, NEG_INF))
+    logits = _masked_logits(q, k, q_pos, kv_pos, kv_valid, cfg, window)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(q.shape).to(q.dtype)

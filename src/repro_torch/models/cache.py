@@ -39,6 +39,17 @@ written. In a paged pool a write that JAX drops is redirected to cell
 is left exactly as JAX leaves it, and nothing waits on the device. The
 dense writers that JAX clamps (``write_step``, ``update_kv_pos``) clamp
 here too.
+
+On a device mesh a full cache is a DTensor in ``launch.sharding.
+cache_specs``' placements: batch over ``data`` (``pod, data`` on two
+pods), KV heads over ``model`` where they divide it, else slots over
+``model``, or, for a single long sequence, slots over ``data``. DTensor
+refuses an in-place write that would change those placements, so the
+dense writers write on each rank's shard (GSPMD's dynamic-update-slice on
+a sharded dim): the update is redistributed to the cache's placements on
+its batch and head dims, each slot is translated into the rank's own
+range (``pjit_rules.shard_span``), and a rank whose shard does not hold
+the slot keeps its values. The cache keeps its placements.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import dtype_of
+from .pjit_rules import is_dtensor, local_shard, shard_span
 from .ssm import conv_dim
 
 Cache = Dict[str, torch.Tensor]
@@ -99,6 +111,44 @@ def _step_slot(pos: torch.Tensor, t: int, ring: bool) -> torch.Tensor:
     return (torch.remainder(pos, t) if ring else torch.clamp(pos, max=t - 1)).long()
 
 
+def _like_cache(cache: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``x`` (B, S, ...) placed as the DTensor
+    ``cache`` (B, T, ...) on every dim but the slots (replicated there: an
+    update spans the slots it writes, and each rank picks its own)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % cache.ndim == 1 else p
+          for p in cache.placements]
+    return local_shard(x, cache.device_mesh, pl)
+
+
+def _lanes(cache: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """This rank's lanes of ``x`` (B, ...): sharded as the DTensor
+    ``cache``'s batch dim 0, replicated elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim % cache.ndim == 0 else Replicate()
+          for p in cache.placements]
+    return local_shard(x, cache.device_mesh, pl)
+
+
+def _write_slots(cache: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor) -> None:
+    """cache[b, slot[b]] = vals[b] on this rank's shard of the DTensor
+    ``cache`` (B, T, ...), whose slot dim may be sharded; ``slot`` and
+    ``vals`` are this rank's lanes, the slots global. A lane whose slot
+    lies outside the rank's range rewrites its current value."""
+    off, n = shard_span(cache, 1)
+    with torch.no_grad():
+        loc = cache.to_local()
+        s = slot - off
+        keep = (s >= 0) & (s < n)
+        idx = torch.clamp(s, 0, n - 1)
+        bidx = torch.arange(loc.shape[0], device=loc.device)
+        cur = loc[bidx, idx]
+        keep = keep.reshape(keep.shape + (1,) * (cur.ndim - 1))
+        loc[bidx, idx] = torch.where(keep, vals.to(loc.dtype), cur)
+
+
 def write_step(
     cache_k: torch.Tensor,   # (B, T, KV, Dh) one layer
     cache_v: torch.Tensor,
@@ -107,7 +157,13 @@ def write_step(
     pos: torch.Tensor,       # (B,) absolute position of the new token
     ring: bool = False,
 ) -> None:
-    """Write one decode token's K/V at its slot (``_step_slot``), in place."""
+    """Write one decode token's K/V at its slot (``_step_slot``), in place;
+    a DTensor cache on each rank's shard (module docstring)."""
+    if is_dtensor(cache_k):
+        slot = _step_slot(_lanes(cache_k, pos), cache_k.shape[1], ring)
+        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+            _write_slots(cache, slot, _like_cache(cache, new)[:, 0])
+        return
     slot = _step_slot(pos, cache_k.shape[1], ring)
     bidx = torch.arange(cache_k.shape[0], device=cache_k.device)
     cache_k[bidx, slot] = k_new[:, 0].to(cache_k.dtype)
@@ -115,9 +171,34 @@ def write_step(
 
 
 def update_kv_pos(kv_pos: torch.Tensor, pos: torch.Tensor, ring: bool = False) -> None:
-    """kv_pos[b, slot of pos[b]] = pos[b], in place (``_step_slot``)."""
+    """kv_pos[b, slot of pos[b]] = pos[b], in place (``_step_slot``); a
+    DTensor kv_pos on each rank's shard."""
     b, t = kv_pos.shape
+    if is_dtensor(kv_pos):
+        lp = _lanes(kv_pos, pos)
+        _write_slots(kv_pos, _step_slot(lp, t, ring), lp)
+        return
     kv_pos[torch.arange(b, device=kv_pos.device), _step_slot(pos, t, ring)] = pos.to(kv_pos.dtype)
+
+
+def write_layer(stack: torch.Tensor, i: int, value: torch.Tensor) -> None:
+    """stack[i] = value, in place: layer ``i`` of a stacked cache leaf (an
+    SSM state's ``h`` or ``conv``). A DTensor stack (its layer dim whole)
+    takes the value redistributed to its placements, on each rank's
+    shard."""
+    if not is_dtensor(stack):
+        stack[i] = value
+        return
+    from torch.distributed.tensor import Shard
+
+    pl = []
+    for p in stack.placements:
+        if isinstance(p, Shard):
+            assert p.dim % stack.ndim > 0, stack.placements
+            p = Shard(p.dim % stack.ndim - 1)
+        pl.append(p)
+    with torch.no_grad():
+        stack.to_local()[i] = local_shard(value, stack.device_mesh, pl).to(stack.dtype)
 
 
 def _kept(p0: int, s: int, t: int) -> int:
@@ -126,13 +207,28 @@ def _kept(p0: int, s: int, t: int) -> int:
     return max(0, min(s, t - p0))
 
 
+def _write_span(cache: torch.Tensor, p0: int, new: torch.Tensor) -> None:
+    """cache[:, p0 : p0 + S] = new (slots past the cache dropped) on this
+    rank's shard of the DTensor ``cache``, whose slot dim may be sharded:
+    each rank writes the part of the span its range holds."""
+    off, n = shard_span(cache, 1)
+    lo, hi = max(p0, off), min(p0 + new.shape[1], off + n)
+    if hi > lo:
+        with torch.no_grad():
+            cache.to_local()[:, lo - off : hi - off] = new[:, lo - p0 : hi - p0].to(cache.dtype)
+
+
 def write_chunk(
     cache: torch.Tensor,   # (B, T, KV, Dh) one layer of a full cache
     new: torch.Tensor,     # (B, S, KV, Dh) a chunk's rotated K (or V)
     p0: int,               # every lane's chunk starts at slot p0
 ) -> None:
     """``cache.at[b, p0 + arange(S)].set(new, mode="drop")``, in place:
-    slots past the cache are dropped."""
+    slots past the cache are dropped. A DTensor cache on each rank's
+    shard."""
+    if is_dtensor(cache):
+        _write_span(cache, p0, _like_cache(cache, new))
+        return
     n = _kept(p0, new.shape[1], cache.shape[1])
     cache[:, p0 : p0 + n] = new[:, :n].to(cache.dtype)
 
@@ -144,7 +240,12 @@ def append_kv_pos(
 ) -> None:
     """kv_pos after appending a chunk at ``p0`` into a full cache, in
     place: padded chunk positions write -1 (kept invalid), slots past the
-    cache are dropped."""
+    cache are dropped. A DTensor kv_pos on each rank's shard."""
+    if is_dtensor(kv_pos):
+        lv = _like_cache(kv_pos, valid)
+        pos = torch.arange(p0, p0 + lv.shape[1], dtype=kv_pos.dtype, device=lv.device)
+        _write_span(kv_pos, p0, torch.where(lv, pos, torch.full_like(pos, -1)))
+        return
     n = _kept(p0, valid.shape[1], kv_pos.shape[1])
     pos = torch.arange(p0, p0 + n, dtype=kv_pos.dtype, device=kv_pos.device)
     kv_pos[:, p0 : p0 + n] = torch.where(valid[:, :n], pos, torch.full_like(pos, -1))
@@ -171,34 +272,44 @@ def trim_cache_prefix(caches: List[Cache], n_valid: int) -> List[Cache]:
     ]
 
 
+def _slot_positions(j: torch.Tensor, slots: int, seq_len: int, ring: bool) -> torch.Tensor:
+    """The position slot ``j`` of a ``slots``-slot cache holds after a
+    prefill of ``seq_len`` tokens (-1 = empty): slot == position, or, for
+    a ring shorter than the sequence, the last ``slots`` positions at
+    slot = position % slots."""
+    if not ring or seq_len <= slots:
+        return torch.where(j < seq_len, j, torch.full_like(j, -1))
+    base = seq_len - slots
+    return base + torch.remainder(j - base, slots)
+
+
 def prefill_kv_pos(
     batch: int, slots: int, seq_len: int, device: Optional[torch.device] = None,
-    ring: bool = False,
+    ring: bool = False, span: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """kv_pos after prefilling ``seq_len`` tokens into a cache of ``slots``
-    slots: slot == position, or, for a ring shorter than the sequence, the
-    last ``slots`` positions at slot = position % slots."""
-    j = torch.arange(slots, dtype=torch.int32, device=device)
-    if not ring or seq_len <= slots:
-        pos = torch.where(j < seq_len, j, torch.full_like(j, -1))
-    else:
-        base = seq_len - slots
-        pos = base + torch.remainder(j - base, slots)
-    return pos[None, :].expand(batch, slots).clone()
+    slots (``_slot_positions``); with ``span`` = (offset, length), only
+    those slots (a rank's shard)."""
+    off, n = span or (0, slots)
+    j = torch.arange(off, off + n, dtype=torch.int32, device=device)
+    return _slot_positions(j, slots, seq_len, ring)[None, :].expand(batch, n).clone()
 
 
-def ring_from_prefill(k: torch.Tensor, window: int) -> torch.Tensor:
+def ring_from_prefill(
+    k: torch.Tensor, window: int, span: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
     """A prefill's keys (or values) (B, S, KV, Dh) packed into a ring of
     ``window`` slots (slot = position % window): the last ``window``
     positions, or, for S <= window, the S positions and zero slots after
-    them."""
+    them. With ``span`` = (offset, length), only those slots (a rank's
+    shard)."""
     s = k.shape[1]
-    j = torch.arange(window, device=k.device)
+    off, n = span or (0, window)
+    j = torch.arange(off, off + n, device=k.device)
     if s <= window:
         out = k[:, torch.clamp(j, max=s - 1)]
         return torch.where((j < s)[None, :, None, None], out, torch.zeros_like(out))
-    base = s - window
-    return k[:, base + torch.remainder(j - base, window)]
+    return k[:, _slot_positions(j, window, s, True)]
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .pjit_rules import is_dtensor, unflatten
+from .pjit_rules import all_reduce, from_shards, is_dtensor, local_shard, shard_span, unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -187,18 +187,45 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> 
 
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of ``table``. A DTensor table is gathered over its vocab
-    dim first (DTensor's masked vocab-parallel lookup loses its mask when
-    an operator comes between it and its reduction) and read through
-    ``F.embedding`` (not every DTensor version shards the backward of an
-    index, ``index_put``)."""
+    """Rows ``ids`` of ``table``. A DTensor table whose vocab dim is sharded
+    is read vocab-parallel on the shards where no gradient is recorded
+    (``_lookup_on_shards``: serving); under autograd it is gathered over
+    its vocab dim first (DTensor's masked vocab-parallel lookup loses its
+    mask when an operator comes between it and its reduction) and read
+    through ``F.embedding`` (not every DTensor version shards the backward
+    of an index, ``index_put``)."""
     if is_dtensor(table):
         from torch.distributed.tensor import Replicate, Shard
 
+        vocab = [i for i, p in enumerate(table.placements) if isinstance(p, Shard) and p.dim == 0]
+        if vocab and not (torch.is_grad_enabled() and table.requires_grad):
+            return _lookup_on_shards(table, ids, vocab)
         pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
               for p in table.placements]
         return F.embedding(ids.long(), table.redistribute(table.device_mesh, pl))
     return table[ids.long()]
+
+
+def _lookup_on_shards(table: torch.Tensor, ids: torch.Tensor, vocab) -> torch.Tensor:
+    """The vocab-parallel lookup, as GSPMD partitions a gather from a
+    table sharded on its rows: each rank reads the ids inside its vocab
+    range from its rows (the table's other dims gathered, as FSDP gathers
+    a weight), zeros elsewhere, and the rows are all-reduced by SUM over
+    the mesh dims ``vocab`` that cut the vocab. The ids keep their batch
+    sharding."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = table.device_mesh
+    rows = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                     for i in range(mesh.ndim)]).to_local()
+    off, n = shard_span(table, 0)
+    pid = [p if i not in vocab and isinstance(p, Shard) else Replicate()
+           for i, p in enumerate(ids.placements)] if is_dtensor(ids) else [Replicate()] * mesh.ndim
+    lid = local_shard(ids, mesh, pid).long() - off
+    hit = (lid >= 0) & (lid < n)
+    out = F.embedding(torch.clamp(lid, 0, n - 1), rows)
+    out = torch.where(hit[..., None], out, torch.zeros_like(out))
+    return from_shards(all_reduce(out, "sum", mesh, vocab), mesh, pid)
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

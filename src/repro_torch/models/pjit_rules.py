@@ -18,6 +18,14 @@ tensor itself, so the one-device paths are untouched. ``sharding_rules``
 with a mesh also lets plain tensors mix with DTensors as replicated values
 (``implicit_replication``): the model builds positions and masks as plain
 tensors, the same on every rank.
+
+Where DTensor's own operators would gather, refuse an in-place write or
+differ between PyTorch versions, model code runs on each rank's shards
+with plain tensors: ``local_shard`` / ``from_shards`` cross between a
+DTensor and this rank's shard, ``shard_span`` / ``placement_span`` give
+the shard's range of a dim, ``rule_placements`` the placements the rules
+give a tensor's dims, and ``all_reduce`` is the functional collective the
+dry-run counts.
 """
 
 from __future__ import annotations
@@ -186,20 +194,121 @@ def flatten(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return _Flatten.apply(x, dim, sizes, shape)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    DTensor built from a local gradient takes its strides as those of its
+    global shape, and a permuted einsum gradient would break later views."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_shard(t: torch.Tensor, mesh, pl: List[Any],
+                grad: Optional[List[Any]] = None) -> torch.Tensor:
+    """This rank's shard of ``t`` redistributed to the placements ``pl``: a
+    plain tensor counts as replicated (the same on every rank). ``grad``
+    gives the placements of the gradient flowing back into it, where they
+    differ from ``pl`` (a replicated input of a computation cut over a
+    mesh dim gets a partial gradient there)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return _ContiguousGrad.apply(t.redistribute(mesh, pl).to_local(grad_placements=grad))
+
+
+def from_shards(local: torch.Tensor, mesh, pl: List[Any]) -> torch.Tensor:
+    """A DTensor of this rank's shard ``local`` in placements ``pl`` (every
+    sharded dim divides evenly)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+
+
+def placement_span(size: int, dim: int, pl: List[Any], mesh) -> Tuple[int, int]:
+    """(offset, length) of this rank's shard of a dim of ``size`` that is
+    tensor dim ``dim`` under the placements ``pl``: each mesh dim that
+    shards it cuts the piece left by the ones before it, the first the
+    major one (DTensor's order). Raises where a mesh dim does not divide
+    the piece it cuts."""
+    from torch.distributed.tensor import Shard
+
+    n, off = size, 0
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            k = mesh.size(i)
+            if n % k:
+                raise ValueError(f"a dim of {size} does not divide over mesh dim "
+                                 f"{mesh.mesh_dim_names[i]!r} of {k}")
+            n //= k
+            off += mesh.get_local_rank(i) * n
+    return off, n
+
+
+def shard_span(t: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's shard of the DTensor ``t``'s dim
+    ``dim`` (``placement_span``)."""
+    from torch.distributed.tensor import Shard
+
+    pl = [Shard(p.dim % t.ndim) if isinstance(p, Shard) else p for p in t.placements]
+    return placement_span(t.shape[dim], dim % t.ndim, pl, t.device_mesh)
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, dims: List[int]) -> torch.Tensor:
+    """``t`` reduced by ``op`` ("max" or "sum") over the mesh dims ``dims``,
+    one functional collective per mesh dim (what the dry-run counts)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for i in dims:
+        t = funcol.all_reduce(t, op, (mesh, i))
+        if hasattr(t, "wait"):
+            t = t.wait()
+    return t
+
+
+def rule_placements(shape: Tuple[int, ...], mesh, logical: Dict[int, str]) -> List[Any]:
+    """Placements of a tensor of ``shape`` whose dims ``logical`` names
+    (tensor dim -> logical axis): per mesh dim, ``Shard(d)`` where the
+    active rules bind dim d's axis to it and its shards divide the piece
+    left (a dim of one element stays whole, as in ``constrain``), else
+    ``Replicate()`` (everything replicated without rules)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rules = _RULES.get() or {}
+    names = mesh.mesh_dim_names
+    out: List[Any] = [Replicate()] * mesh.ndim
+    for d, name in logical.items():
+        n = shape[d]
+        for a in _axes(rules.get(name)):
+            i = names.index(a) if a in names else None
+            if i is not None and not isinstance(out[i], Shard) and n > 1 \
+                    and n % mesh.size(i) == 0:
+                out[i] = Shard(d)
+                n //= mesh.size(i)
+    return out
+
+
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Redistribute the DTensor ``x`` to the placements the active rules
     give its logical axes (JAX's ``with_sharding_constraint``). No-op
     without active rules, without a mesh in them, on a tensor that is not a
     DTensor, on rank mismatch, and where a mesh axis would not divide its
     dim (DTensor shards such a dim unevenly, and views of it then fail;
-    JAX pads instead)."""
+    JAX pads instead). A dim of one element stays whole: DTensor's views
+    drop a sharded one (a batch of one on a mesh dim of one)."""
     rules = _RULES.get()
     if rules is None or rules.get("_mesh") is None:
         return x
     if not is_dtensor(x) or len(logical) != x.ndim:
         return x
     mesh = rules["_mesh"]
-    spec = P(*(rules.get(name) if name else None for name in logical))
+    spec = P(*(rules.get(name) if name and n > 1 else None
+               for name, n in zip(logical, x.shape)))
     if not _divides(spec, x.shape, mesh):
         return x
     return x.redistribute(mesh, placements(spec, mesh))

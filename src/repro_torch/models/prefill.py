@@ -35,11 +35,13 @@ from .layers import (
     unembed,
 )
 from .moe import moe_forward
+from .pjit_rules import from_shards, is_dtensor, local_shard, placement_span, placements
 from .transformer import (
     _mamba_block_full,
     default_positions,
     embed_inputs,
     layer_groups,
+    make_decode_caches,
     pair_windows,
 )
 
@@ -106,6 +108,84 @@ def _pack_attn_cache(
     return ck, cv, prefill_kv_pos(b, slots, s, dev, packed)
 
 
+def _mesh_cache_specs(cfg: ModelConfig, x: torch.Tensor, max_len: int):
+    """(mesh, per-group cache specs) for a prefill whose activations ``x``
+    are DTensors, else None: ``launch.sharding.cache_specs`` on ``x``'s
+    mesh, as the dry-run places a decode step's caches (slots over data
+    for a single sequence, B = 1; else the batch), so a ``decode_step``
+    follows without a redistribution. JAX computes none: GSPMD
+    propagates."""
+    if not is_dtensor(x):
+        return None
+    from ..launch.sharding import cache_specs
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    b = x.shape[0]
+    abstract = make_decode_caches(cfg, b, max_len, device="meta")
+    return mesh, cache_specs(cfg, abstract, "pod" in names,
+                             model_size=mesh.size(names.index("model")), seq_shard=b == 1)
+
+
+def _pack_on_shards(
+    ks: List[torch.Tensor], vs: List[torch.Tensor], slots: int, ring: bool, specs: Dict, mesh,
+) -> Cache:
+    """``_pack_attn_cache`` of DTensor K/V, built on each rank's shards in
+    the placements of ``specs`` (``cache_specs``' k / v / kv_pos): each
+    layer's K/V are redistributed to the cache's batch and head
+    placements with the sequence whole, and each rank packs the slots of
+    its own range."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    b, s = ks[0].shape[:2]
+    packed = ring and slots < s
+    if not packed and slots < s:
+        raise ValueError(f"prefill of {s} tokens into {slots} slots")
+    pl = placements(specs["k"], mesh)                      # (L, B, T, KV, Dh)
+    src = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim != 2 else Replicate() for p in pl]
+    span = placement_span(slots, 2, pl, mesh)
+    cache = {name: from_shards(torch.stack([
+        ring_from_prefill(local_shard(t, mesh, src), slots, span) for t in ts]), mesh, pl)
+        for name, ts in (("k", ks), ("v", vs))}
+    ppos = placements(specs["kv_pos"], mesh)                # (B, T)
+    _, b_loc = placement_span(b, 0, ppos, mesh)
+    kv_pos = prefill_kv_pos(b_loc, slots, s, ks[0].device, packed,
+                            span=placement_span(slots, 1, ppos, mesh))
+    cache["kv_pos"] = from_shards(kv_pos, mesh, ppos)
+    return cache
+
+
+def _attn_cache(
+    ks: List[torch.Tensor], vs: List[torch.Tensor], slots: int, ring: bool, on_mesh,
+    specs: Optional[Dict],
+) -> Cache:
+    """A group's attention cache from its layers' prefill K/V: packed on
+    the shards on a mesh (``on_mesh`` = (mesh, specs)), else
+    ``_pack_attn_cache``."""
+    if on_mesh is not None:
+        return _pack_on_shards(ks, vs, slots, ring, specs, on_mesh[0])
+    ck, cv, kv_pos = _pack_attn_cache(ks, vs, slots, ring)
+    return {"k": ck, "v": cv, "kv_pos": kv_pos}
+
+
+def _ssm_cache(hs: List[torch.Tensor], convs: List[torch.Tensor], on_mesh,
+               specs: Optional[Dict]) -> Cache:
+    """A group's SSM cache from its layers' final states and conv windows,
+    stacked; on a mesh in the placements of ``specs`` (``cache_specs``'
+    h / conv)."""
+    if on_mesh is None:
+        return {"h": torch.stack(hs), "conv": torch.stack(convs)}
+    from torch.distributed.tensor import Shard
+
+    mesh = on_mesh[0]
+    out = {}
+    for name, ts in (("h", hs), ("conv", convs)):
+        pl = placements(specs[name], mesh)
+        per = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl]
+        out[name] = from_shards(torch.stack([local_shard(t, mesh, per) for t in ts]), mesh, pl)
+    return out
+
+
 def prefill(
     params: Dict,
     cfg: ModelConfig,
@@ -129,7 +209,10 @@ def prefill(
     (``_pack_attn_cache``); a mamba layer's cache is its final SSM state
     and conv window. With ``true_len`` the input is right-padded to a
     bucket length (``seq_valid`` is then ``arange(S) < true_len``) and
-    logits/next_pos refer to position ``true_len - 1``. As in JAX, the
+    logits/next_pos refer to position ``true_len - 1``. On a device mesh (parameters and inputs as
+    DTensors) the caches come back as DTensors in
+    ``launch.sharding.cache_specs``' placements (``_mesh_cache_specs``),
+    each built on the ranks' shards. As in JAX, the
     padding is masked out of attention, and a dense or moe group's kv_pos
     is valid below ``true_len`` only (such a group needs full caches); but
     a mamba layer runs its SSM over the padded rows too (so its state has
@@ -150,15 +233,17 @@ def prefill(
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     sw = cfg.sliding_window or 8192
     ring = cfg.attn_variant == "sliding_window"
+    on_mesh = _mesh_cache_specs(cfg, x, max_len)
     caches: List[Cache] = []
-    for spec, gp in zip(groups, params["groups"]):
+    for gi, (spec, gp) in enumerate(zip(groups, params["groups"])):
+        gspec = on_mesh[1][gi] if on_mesh is not None else None
         if spec.kind == "mamba":
             hs, convs = [], []
             for bp in gp:
                 x, final, conv = _mamba_block_full(bp, x, cfg)
                 hs.append(final)
                 convs.append(conv)
-            caches.append({"h": torch.stack(hs), "conv": torch.stack(convs)})
+            caches.append(_ssm_cache(hs, convs, on_mesh, gspec))
             continue
         if spec.kind == "zamba":
             hs, convs, ks, vs = [], [], [], []
@@ -172,11 +257,10 @@ def prefill(
                 )
                 ks.append(k)
                 vs.append(v)
-            ck, cv, kv_pos = _pack_attn_cache(ks, vs, min(sw, max_len) if ring else max_len,
-                                              ring)
             caches.append({
-                "ssm": {"h": torch.stack(hs), "conv": torch.stack(convs)},
-                "attn": {"k": ck, "v": cv, "kv_pos": kv_pos},
+                "ssm": _ssm_cache(hs, convs, on_mesh, gspec and gspec["ssm"]),
+                "attn": _attn_cache(ks, vs, min(sw, max_len) if ring else max_len, ring,
+                                    on_mesh, gspec and gspec["attn"]),
             })
             continue
         if spec.kind == "gemma_pair":
@@ -191,12 +275,11 @@ def prefill(
                                                seq_valid)
                 gks.append(k)
                 gvs.append(v)
-            lck, lcv, l_pos = _pack_attn_cache(lks, lvs, min(cfg.sliding_window, max_len), True)
-            gck, gcv, g_pos = _pack_attn_cache(gks, gvs, min(sw, max_len) if ring else max_len,
-                                               ring)
             caches.append({
-                "local": {"k": lck, "v": lcv, "kv_pos": l_pos},
-                "global": {"k": gck, "v": gcv, "kv_pos": g_pos},
+                "local": _attn_cache(lks, lvs, min(cfg.sliding_window, max_len), True, on_mesh,
+                                     gspec and gspec["local"]),
+                "global": _attn_cache(gks, gvs, min(sw, max_len) if ring else max_len, ring,
+                                      on_mesh, gspec and gspec["global"]),
             })
             continue
         w = cfg.window_for_layer(0)
@@ -206,11 +289,11 @@ def prefill(
             x, k, v = block(bp, x, positions, cfg, w, seq_valid)
             ks.append(k)
             vs.append(v)
-        ck, cv, kv_pos = _pack_attn_cache(ks, vs, min(sw, max_len) if ring else max_len, ring)
+        cache = _attn_cache(ks, vs, min(sw, max_len) if ring else max_len, ring, on_mesh, gspec)
         if true_len is not None:
             assert not ring, "bucketed prefill needs full caches"
-            kv_pos = trim_kv_pos(kv_pos, true_len)
-        caches.append({"k": ck, "v": cv, "kv_pos": kv_pos})
+            cache["kv_pos"] = trim_kv_pos(cache["kv_pos"], true_len)
+        caches.append(cache)
     bi = torch.arange(b, device=dev)
     if true_len is not None:
         last = x[bi, true_len.long() - 1][:, None, :]

@@ -12,6 +12,14 @@ the intra-chunk work through the hand-written SSD chunk kernel (K6,
 ``kernels.ssd``) instead. Dtypes are the JAX package's: the SSD runs in
 f32, its outputs and the final state are cast back to the input's dtype,
 and decode updates ``h`` in f32 and stores it in the state's dtype.
+
+On DTensors (a device mesh) the SSD and the decode recurrence run on each
+rank's shards with plain tensors (``_ssd_on_shards``,
+``_recurrence_on_shards``): the batch over the rules' ``batch`` axes, the
+SSM heads over their ``ssm_inner`` axis where they divide it, B / C whole
+(one group, broadcast over the heads). Run as DTensor operators, the
+chunked einsums flatten dims sharded on two mesh dims, which DTensor
+shards by chunking the flattened dim.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import Params, dtype_of, init_normal, rms_norm
+from .pjit_rules import flatten, from_shards, is_dtensor, local_shard, rule_placements
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -73,7 +82,10 @@ def ssd_reference(
     h0: Optional[torch.Tensor] = None,   # (B,H,P,N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. Returns (y (B,L,H,P), final_state (B,H,P,N)), both in
-    x's dtype. Uses B/C group 0, broadcast over heads (standard Mamba2)."""
+    x's dtype. Uses B/C group 0, broadcast over heads (standard Mamba2).
+    DTensors run on their shards (``_ssd_on_shards``)."""
+    if is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, Bv, Cv, chunk, h0)
     b, l, h, p = x.shape
     g, n = Bv.shape[2], Bv.shape[3]
     if l % chunk:
@@ -112,6 +124,48 @@ def ssd_reference(
     y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, prev_states, torch.exp(dA_cs))
     y = (y_intra + y_inter).reshape(b, l, h, p)
     return y.to(x.dtype), carry.to(x.dtype)
+
+
+def _roles(pl: list, head_dim: int) -> Tuple[list, list]:
+    """Which mesh dims of the placements ``pl`` cut the batch (dim 0) and
+    which the heads (dim ``head_dim``)."""
+    from torch.distributed.tensor import Shard
+
+    return ([isinstance(p, Shard) and p.dim == 0 for p in pl],
+            [isinstance(p, Shard) and p.dim == head_dim for p in pl])
+
+
+def _operand_placements(batch: list, heads: list, head_dim: Optional[int],
+                        has_batch: bool) -> list:
+    """Placements of an operand whose heads are its dim ``head_dim``
+    (None: it has none) and whose dim 0 is the batch where ``has_batch``:
+    cut as the computation is, replicated on the other mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if b and has_batch else Shard(head_dim) if h and head_dim is not None
+            else Replicate() for b, h in zip(batch, heads)]
+
+
+def _ssd_on_shards(x, dt, A, Bv, Cv, chunk: int, h0):
+    """``ssd_reference`` of DTensors, run on each rank's shards and
+    returned as DTensors in x's shard placements (module docstring). A
+    replicated operand of a computation cut over a mesh dim gets a partial
+    gradient there: A over the batch, B / C over the heads."""
+    from torch.distributed.tensor import Partial
+
+    mesh = x.device_mesh
+    px = rule_placements(x.shape, mesh, {0: "batch", 2: "ssm_inner"})
+    batch, heads = _roles(px, 2)
+    ph = _operand_placements(batch, heads, 1, True)
+    pa = _operand_placements(batch, heads, 0, False)
+    pbc = _operand_placements(batch, heads, None, True)
+    ga = [Partial() if b else p for b, p in zip(batch, pa)]
+    gbc = [Partial() if h else p for h, p in zip(heads, pbc)]
+    y, final = ssd_reference(
+        local_shard(x, mesh, px), local_shard(dt, mesh, px), local_shard(A, mesh, pa, ga),
+        local_shard(Bv, mesh, pbc, gbc), local_shard(Cv, mesh, pbc, gbc), chunk,
+        None if h0 is None else local_shard(h0, mesh, ph))
+    return from_shards(y, mesh, px), from_shards(final, mesh, ph)
 
 
 def ssm_forward(
@@ -167,6 +221,37 @@ def init_ssm_state(
     }
 
 
+def _recurrence(h, x, dt, A, Bv, Cv, D) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's state update and readout in f32: h (B,H,P,N), x
+    (B,H,P), dt (B,H), A and D (H,), B / C (B,N); returns (y (B,H,P),
+    h_new). DTensors run on their shards (``_recurrence_on_shards``)."""
+    if is_dtensor(h):
+        return _recurrence_on_shards(h, x, dt, A, Bv, Cv, D)
+    f32 = torch.float32
+    decay = torch.exp(dt * A)                                       # (B,H)
+    h_new = (
+        h.to(f32) * decay[:, :, None, None]
+        + dt[:, :, None, None] * x.to(f32)[:, :, :, None] * Bv.to(f32)[:, None, None, :]
+    )
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cv.to(f32))
+    return y + D[None, :, None] * x.to(f32), h_new
+
+
+def _recurrence_on_shards(h, x, dt, A, Bv, Cv, D):
+    """``_recurrence`` of DTensors on each rank's shards, returned as
+    DTensors in h's shard placements (module docstring)."""
+    mesh = h.device_mesh
+    ph = rule_placements(h.shape, mesh, {0: "batch", 1: "ssm_inner"})
+    batch, heads = _roles(ph, 1)
+    pa = _operand_placements(batch, heads, 0, False)
+    pbc = _operand_placements(batch, heads, None, True)
+    y, h_new = _recurrence(
+        local_shard(h, mesh, ph), local_shard(x, mesh, ph), local_shard(dt, mesh, ph),
+        local_shard(A, mesh, pa), local_shard(Bv, mesh, pbc), local_shard(Cv, mesh, pbc),
+        local_shard(D, mesh, pa))
+    return from_shards(y, mesh, ph), from_shards(h_new, mesh, ph)
+
+
 def ssm_decode_step(
     p: Params,
     xin: torch.Tensor,            # (B,1,D)
@@ -179,7 +264,6 @@ def ssm_decode_step(
     b = xin.shape[0]
     di, nh, g, n = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_state
     hd = di // nh
-    f32 = torch.float32
 
     zxbcdt = xin[:, 0] @ p["in_proj"]                               # (B, ·)
     z, xbc, dt = torch.split(zxbcdt, [di, conv_dim(cfg), nh], dim=-1)
@@ -193,14 +277,8 @@ def ssm_decode_step(
     dt = softplus(dt.float() + p["dt_bias"])                        # (B,H)
     A = -torch.exp(p["A_log"])
 
-    decay = torch.exp(dt * A)                                       # (B,H)
-    h_new = (
-        state["h"].to(f32) * decay[:, :, None, None]
-        + dt[:, :, None, None] * x.to(f32)[:, :, :, None] * Bv.to(f32)[:, None, None, :]
-    )
-    y = torch.einsum("bhpn,bn->bhp", h_new, Cv.to(f32))
-    y = y + p["D"][None, :, None] * x.to(f32)
-    y = y.reshape(b, di).to(xin.dtype)
+    y, h_new = _recurrence(state["h"], x, dt, A, Bv, Cv, p["D"])
+    y = flatten(y, 1, 2).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None, :]
     return out, {"h": h_new.to(state["h"].dtype), "conv": conv}

@@ -40,6 +40,7 @@ from .cache import (
     paged_write_step,
     update_kv_pos,
     update_kv_pos_paged,
+    write_layer,
     write_step,
 )
 from .config import ModelConfig
@@ -404,13 +405,13 @@ def _mamba_block_decode(
     bp: Params, x: torch.Tensor, ssm: Cache, i: int, cfg: ModelConfig,
 ) -> torch.Tensor:
     """One mamba layer's decode step; layer ``i`` of ``ssm`` is updated in
-    place."""
+    place (on each rank's shard for DTensor states, ``write_layer``)."""
     out, st = ssm_decode_step(
         bp["ssm"], rms_norm(x, bp["norm"], cfg.norm_eps),
         {"h": ssm["h"][i], "conv": ssm["conv"][i]}, cfg,
     )
-    ssm["h"][i] = st["h"]
-    ssm["conv"][i] = st["conv"]
+    write_layer(ssm["h"], i, st["h"])
+    write_layer(ssm["conv"], i, st["conv"])
     return x + out
 
 

@@ -12,7 +12,13 @@ results (``full_tensor``) to ``out`` as a pickle of torch tensors:
   model_size=2)``, parameters placed by ``param_specs``;
 - the MoE config's shard-map forward and gradients on that mesh under the
   rules of ``tests/test_perf_features.py``'s shard-map check, parameters
-  replicated as that check's are.
+  replicated as that check's are;
+- each serving case's ``prefill``, greedy ``decode_step``s and, on full
+  caches, a ``prefill_append`` on its mesh under ``rules_for(...,
+  kind=...)``, parameters placed by ``param_specs``, the tokens over the
+  batch (replicated for one sequence), the caches as ``prefill`` returns
+  them: the logits, greedy tokens, final caches, and each cache leaf's
+  placements beside ``cache_specs``'.
 """
 
 import os
@@ -29,6 +35,70 @@ def _full(tree):
     from repro_torch.models.weights import tree_map
 
     return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, tree)
+
+
+def paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts (keys sorted) and lists, as the JAX
+    subprocess names its cache leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from paths(tree[k], f"{prefix}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from paths(v, f"{prefix}.{i}")
+    else:
+        yield prefix, tree
+
+
+def _serve(case, mesh):
+    """One serving case on ``mesh``: prefill, greedy decode steps, and on
+    full caches an append of the given tokens."""
+    from repro_torch.launch.sharding import cache_specs, distribute_tree, param_specs
+    from repro_torch.models import (
+        ModelConfig,
+        decode_step,
+        params_from_numpy,
+        prefill,
+        prefill_append,
+    )
+    from repro_torch.models.pjit_rules import P, placements, rules_for, sharding_rules
+
+    cfg = ModelConfig(**case["cfg"])
+    params = params_from_numpy(case["params"], cfg, device="cpu")
+    multi = "pod" in mesh.mesh_dim_names
+    dp = ("pod", "data") if multi else ("data",)
+    toks = torch.from_numpy(case["tokens"])
+    seq_shard = toks.shape[0] == 1
+    lanes = P(None) if seq_shard else P(dp)
+    tok_spec = P(None, None) if seq_shard else P(dp, None)
+    dparams = distribute_tree(params, param_specs(cfg, params, 2), mesh)
+    with sharding_rules(dict(rules_for(cfg, multi, model_size=2, kind="prefill"), _mesh=mesh)):
+        logits, caches, pos = prefill(dparams, cfg, distribute_tree(toks, tok_spec, mesh),
+                                      case["max_len"])
+    logits = [logits.full_tensor()]
+    tokens = [logits[-1].argmax(-1)]
+    for _ in range(case["steps"]):
+        with sharding_rules(dict(rules_for(cfg, multi, model_size=2, kind="decode"),
+                                 _mesh=mesh)):
+            step, caches = decode_step(dparams, cfg, caches,
+                                       distribute_tree(tokens[-1][:, None], tok_spec, mesh),
+                                       distribute_tree(pos, lanes, mesh))
+        logits.append(step.full_tensor()[:, 0])
+        tokens.append(logits[-1].argmax(-1))
+        pos = pos + 1
+    if case["append"] is not None:
+        with sharding_rules(dict(rules_for(cfg, multi, model_size=2, kind="prefill"),
+                                 _mesh=mesh)):
+            step, caches, _ = prefill_append(
+                dparams, cfg, caches,
+                distribute_tree(torch.from_numpy(case["append"]), tok_spec, mesh), int(pos[0]))
+        logits.append(step.full_tensor())
+        tokens.append(logits[-1].argmax(-1))
+    specs = dict(paths(cache_specs(cfg, caches, multi, 2, seq_shard=seq_shard)))
+    return {"logits": torch.stack(logits), "tokens": torch.stack(tokens),
+            "caches": {k: t.full_tensor() for k, t in paths(caches)},
+            "placements": {k: str(tuple(t.placements)) for k, t in paths(caches)},
+            "want": {k: str(tuple(placements(s, mesh))) for k, s in specs.items()}}
 
 
 def run_rank(rank: int, world: int, rdzv: str, inputs: str, out: str) -> None:
@@ -84,6 +154,9 @@ def _run(rank: int, inputs: str, out: str) -> None:
         res[name] = {"logits": logits.full_tensor(), "aux": _full(aux), "loss": _full(loss),
                      "grads": _full(grads),
                      "placements": [str(g.placements) for g in tree_leaves(grads)]}
+    with torch.no_grad():
+        res["serve"] = {name: _serve(case, mesh3 if case["pod"] else mesh2)
+                        for name, case in given["serve"].items()}
     if rank == 0:
         tmp = out + ".part"
         with open(tmp, "wb") as f:

@@ -63,6 +63,27 @@ MOE = dict(name="m", arch_type="moe", n_layers=2, d_model=64, n_heads=4, n_kv_he
            d_ff=128, vocab_size=256, n_experts=4, top_k=2, capacity_factor=8.0,
            param_dtype="float32", compute_dtype="float32", moe_impl="shard_map")
 TOKENS = np.random.default_rng(1).integers(0, 256, (8, 16)).astype(np.int32)
+SERVE_STEPS = 4
+_F32 = dict(param_dtype="float32", compute_dtype="float32")
+_TINY = dict(name="t", arch_type="dense", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+             d_ff=64, vocab_size=256, **_F32)
+_RING = dict(_TINY, attn_variant="sliding_window", sliding_window=8)
+SERVE_MAX_LEN, SERVE_APPEND = 20, 4
+# serving cases: (config, on the (2, 2, 2) mesh, prompt rows x length, then
+# a SERVE_APPEND-token prefill_append). (a) KV heads over model; (b) one KV
+# head, slots over model (10 a rank: the prefill straddles them); (c) one
+# sequence, slots over data, a window of 8 that wraps in the 10-token
+# prefill and again in decode; (d) (c) with slots over (pod, data); (e)
+# Mamba2-style, SSM heads over model
+SERVE = {
+    "a_kv_heads_over_model": (_TINY, False, 8, 12, True),
+    "b_slots_over_model": (dict(_TINY, n_kv_heads=1), False, 8, 12, True),
+    "c_ring_slots_over_data": (_RING, False, 1, 10, False),
+    "d_ring_slots_over_pod_data": (_RING, True, 1, 10, False),
+    "e_ssm_heads_over_model": (dict(name="s", arch_type="ssm", n_layers=2, d_model=32, n_heads=0,
+                                    n_kv_heads=0, d_ff=0, vocab_size=256, ssm_state=16,
+                                    ssm_head_dim=8, ssm_chunk=4, **_F32), False, 8, 12, False),
+}
 BUF = np.arange(2 * 3 * 4, dtype=np.int32).reshape(2, 3, 4)
 CACHE = {"k": np.arange(2 * 4 * 4, dtype=np.float32).reshape(2, 4, 4),
          "v": np.ones((2, 4, 4), np.float32) * np.arange(2, dtype=np.float32)[:, None, None]}
@@ -214,7 +235,62 @@ JAX_RUN = textwrap.dedent(
                                  1, 0)
     out.update({"cache_" + k: np.asarray(v) for k, v in moved.items()})
 
+    import repro.launch.sharding as jsh
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+    from repro.models import decode_step, prefill, prefill_append
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from paths(tree[k], f"{prefix}.{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from paths(v, f"{prefix}.{i}")
+        else:
+            yield prefix, tree
+
+    def place(m, tree, specs):
+        return jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(m, s)), tree, specs,
+                            is_leaf=lambda x: isinstance(x, JP))
+
     m2 = mesh((4, 2), ("data", "model"))
+    for name, case in given["serve"].items():
+        cfg = ModelConfig(**case["cfg"])
+        m = m3 if case["pod"] else m2
+        multi = case["pod"]
+        toks = jnp.asarray(case["tokens"])
+        seq = toks.shape[0] == 1
+        dp = ("pod", "data") if multi else ("data",)
+        tok_spec, lanes = (JP(None, None), JP(None)) if seq else (JP(dp, None), JP(dp))
+        params = jax.tree.map(jnp.asarray, case["params"])
+        params = place(m, params, jsh.param_specs(cfg, params, 2))
+        with m, sharding_rules(dict(rules_for(cfg, multi, 2, kind="prefill"), _mesh=m)):
+            logits, caches, pos = jax.jit(lambda p, t: prefill(p, cfg, t, case["max_len"]))(
+                params, jax.device_put(toks, NamedSharding(m, tok_spec)))
+        caches = place(m, caches, jsh.cache_specs(cfg, caches, multi, 2, seq_shard=seq))
+        step = jax.jit(lambda p, c, t, q: decode_step(p, cfg, c, t, q))
+        logits, tokens = [np.asarray(logits)], [np.asarray(logits).argmax(-1)]
+        for _ in range(case["steps"]):
+            with m, sharding_rules(dict(rules_for(cfg, multi, 2, kind="decode"), _mesh=m)):
+                lg, caches = step(params, caches,
+                                  jax.device_put(jnp.asarray(tokens[-1])[:, None],
+                                                 NamedSharding(m, tok_spec)),
+                                  jax.device_put(pos, NamedSharding(m, lanes)))
+            logits.append(np.asarray(lg)[:, 0])
+            tokens.append(logits[-1].argmax(-1))
+            pos = pos + 1
+        if case["append"] is not None:
+            with m, sharding_rules(dict(rules_for(cfg, multi, 2, kind="prefill"), _mesh=m)):
+                lg, caches, _ = jax.jit(lambda p, c, t, q: prefill_append(p, cfg, c, t, q))(
+                    params, caches,
+                    jax.device_put(jnp.asarray(case["append"]), NamedSharding(m, tok_spec)), pos)
+            logits.append(np.asarray(lg))
+            tokens.append(logits[-1].argmax(-1))
+        out[f"serve_{name}_logits"] = np.stack(logits)
+        out[f"serve_{name}_tokens"] = np.stack(tokens)
+        for k, v in paths(caches):
+            out[f"serve_{name}_cache{k}"] = np.asarray(v)
+
     toks = jnp.asarray(given["tokens"])
     batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
     moe_rules = {"batch": ("data",), "seq": None, "heads": None, "kv_heads": None,
@@ -256,21 +332,51 @@ def weights(kw):
 ENV = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
 
 
+SERVE_SHAPES = ("decode_32k", "long_500k", "prefill_32k")
+# JAX's dry-run of qwen2-0.5b at the serving shapes (512 host devices, set
+# by the module on import): each record's argument bytes per device
+JAX_DRY = textwrap.dedent(
+    """
+    import json, re, sys
+    SRC, OUT, *SHAPES = sys.argv[1:]
+    sys.path.insert(0, SRC)
+    from repro.launch.dryrun import lower_combo
+    recs = {}
+    for shape in SHAPES:
+        rec = lower_combo("qwen2-0.5b", shape, verbose=False)
+        arg = re.search(r"argument_size_in_bytes=(\\d+)", rec["memory_analysis"])
+        recs[shape] = {"argument_size_in_bytes": int(arg.group(1)),
+                       "collective_bytes": rec["collective_bytes"]}
+    with open(OUT, "w") as f:
+        json.dump(recs, f)
+    """
+)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def dry_run(tmp_path_factory):
-    """The port's dry-run of the full-width paper model at train_4k on a
-    fake 16 x 16 group, started first (the longest run) so that it runs
-    beside the in-process tests."""
-    out = str(tmp_path_factory.mktemp("dryrun") / "dryrun.json")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", PAPER_QWEN15_0_5B.name,
-         "--shape", "train_4k", "--device", "cpu", "--out", out],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=ENV,
-        cwd=os.path.dirname(out))
-    yield proc, out
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    """The port's dry-run of the full-width paper model at train_4k, and of
+    qwen2-0.5b at the three serving shapes, each on a fake 16 x 16 group,
+    and JAX's of the latter, started first (the longest runs) so that they
+    run beside the in-process tests."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    outs = {k: str(tmp / f"{k}.json") for k in ("train", "serve", "jax")}
+    procs = {
+        "train": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                  PAPER_QWEN15_0_5B.name, "--shape", "train_4k", "--device", "cpu",
+                  "--out", outs["train"]],
+        "serve": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-0.5b",
+                  "--shape", *SERVE_SHAPES, "--device", "cpu", "--out", outs["serve"]],
+        "jax": [sys.executable, "-c", JAX_DRY, SRC, outs["jax"], *SERVE_SHAPES],
+    }
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, env=ENV, cwd=str(tmp))
+             for k, cmd in procs.items()}
+    yield procs, outs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 @pytest.fixture(scope="module")
@@ -286,7 +392,12 @@ def runs(tmp_path_factory, dry_run):
     with open(inputs, "wb") as f:
         pickle.dump({"buf": BUF, "cache": CACHE, "tokens": TOKENS,
                      "dense_cfg": DENSE, "dense_params": weights(DENSE),
-                     "moe_cfg": MOE, "moe_params": weights(MOE)}, f)
+                     "moe_cfg": MOE, "moe_params": weights(MOE),
+                     "serve": {name: {"cfg": kw, "params": weights(kw), "pod": pod,
+                                      "tokens": TOKENS[:b, :s], "max_len": SERVE_MAX_LEN,
+                                      "steps": SERVE_STEPS,
+                                      "append": TOKENS[:b, s:s + SERVE_APPEND] if app else None}
+                               for name, (kw, pod, b, s, app) in SERVE.items()}}, f)
     jax_proc = subprocess.Popen([sys.executable, "-c", JAX_RUN, SRC, inputs, jax_out],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                                 env=ENV)
@@ -301,12 +412,19 @@ def runs(tmp_path_factory, dry_run):
     assert "JAX_OK" in jax_stdout, jax_stdout + jax_stderr
     with open(port_out, "rb") as f:
         port = pickle.load(f)
-    proc, dry_out = dry_run
-    dry_stdout, dry_stderr = proc.communicate(timeout=300)
-    assert proc.returncode == 0, dry_stdout + dry_stderr
-    with open(dry_out) as f:
+    procs, outs = dry_run
+    stdout = {}
+    for k, proc in procs.items():
+        stdout[k], err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stdout[k] + err
+    with open(outs["train"]) as f:
         record = json.load(f)[0]
-    return {"jax": dict(np.load(jax_out)), "port": port, "dry": record, "dry_stdout": dry_stdout}
+    with open(outs["serve"]) as f:
+        serve = {r["shape"]: r for r in json.load(f)}
+    with open(outs["jax"]) as f:
+        jax_serve = json.load(f)
+    return {"jax": dict(np.load(jax_out)), "port": port, "dry": record,
+            "dry_stdout": stdout["train"], "dry_serve": serve, "jax_serve": jax_serve}
 
 
 def test_migration_moves_the_pod_shard_exactly(runs):
@@ -404,3 +522,43 @@ def test_dry_run_of_the_paper_model_at_train_4k(runs):
     for head in ("== paper-qwen1.5-0.5b × train_4k × 16x16", "  compile:", "  memory_analysis:",
                  "  cost_analysis:", "  collectives:", "  roofline:", "  MODEL_FLOPS="):
         assert head in out, (head, out)
+
+
+@pytest.mark.parametrize("case", sorted(SERVE))
+def test_serving_on_a_mesh_matches_jax(runs, case):
+    """``prefill`` then greedy ``decode_step``s of a serving case (then, on
+    full caches, a ``prefill_append`` of the next tokens), each package on
+    its mesh under ``rules_for(..., kind=...)`` with the caches in
+    ``cache_specs``' placements (JAX places them so, the port's
+    ``prefill`` returns them so): the greedy tokens are identical, the
+    logits and the final K/V / h / conv within ``LOGIT_TOL``, every
+    ``kv_pos`` exact, and every cache leaf the port returns keeps its
+    ``cache_specs`` placements."""
+    jx, port = runs["jax"], runs["port"]["serve"][case]
+    np.testing.assert_array_equal(port["tokens"].numpy(), jx[f"serve_{case}_tokens"])
+    np.testing.assert_allclose(port["logits"].numpy(), jx[f"serve_{case}_logits"], **LOGIT_TOL)
+    want = {k[len(f"serve_{case}_cache"):]: v for k, v in jx.items()
+            if k.startswith(f"serve_{case}_cache")}
+    assert sorted(port["caches"]) == sorted(want)
+    for path, got in port["caches"].items():
+        if path.endswith("kv_pos"):
+            np.testing.assert_array_equal(got.numpy(), want[path], err_msg=path)
+        else:
+            np.testing.assert_allclose(got.numpy(), want[path], err_msg=path, **LOGIT_TOL)
+    assert port["placements"] == port["want"]
+
+
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+def test_dry_run_serving_shapes_match_jax(runs, shape):
+    """The port's dry-run of qwen2-0.5b at a serving shape on a fake 16 x 16
+    group holds JAX's argument bytes per device (XLA's
+    ``argument_size_in_bytes``: parameters, caches or tokens, positions)
+    exactly, and at decode its collectives move under 32 MB per device
+    (JAX's 4.6 and 0.2 MB): the slot-sharded cache is attended on its
+    shards, never gathered (3.2 GB at decode_32k)."""
+    rec, want = runs["dry_serve"][shape], runs["jax_serve"][shape]
+    assert rec["status"] == "ok" and rec["shape"] == shape
+    assert rec["argument_bytes_per_device"] == want["argument_size_in_bytes"]
+    if shape != "prefill_32k":
+        assert rec["collective_bytes"] < 32e6, rec["collectives"]
+        assert rec["collectives"]["all-reduce_count"] > 0
